@@ -1,24 +1,33 @@
 // The flagship augment chain on Hopper (sm_90a): crop, user flip, exact
 // quarter turn, Paeth 3-shear rotation, cv2 HSV colour mask into alpha and
-// PIL-exact enhance, for a batch of packed RGBA images.
+// PIL-exact enhance, for a batch of packed RGBA images (ipp_augment_full),
+// and the same chain after the crop for a batch of RGB crops
+// (ipp_augment_fused).
 //
-// Replaces the TPU kernel
+// ipp_augment_full replaces the TPU kernel
 //   image_processor_pipeline_tpu/ops/pallas/augment.py:_augment_full_kernel
 // together with the XLA flip epilogue of augment_fused_pallas_full.
 // Byte-identical to the plain PyTorch version, ops/augment.py:
 // augment_full_reference, given the same shift vectors.
 //
-// Layout.  The TPU kernel shears with bit-decomposed roll+select passes,
-// transposes around them and conjugates the flips through the shift vectors,
+// ipp_augment_fused replaces the TPU kernel
+//   image_processor_pipeline_tpu/ops/pallas/augment.py:_augment_kernel
+// together with the XLA RGB->RGBA pack and D4 passes (_dihedral_batch)
+// before it in augment_fused_pallas.  Byte-identical to ops/augment.py:
+// augment_finish_reference, given the same shift vectors.  It is the first
+// one's computation with no crop: pass 1 reads the RGB crop's three bytes
+// per pixel directly, and the D4 element comes from the quarter turn and
+// the user flip.
+//
+// Layout.  The TPU kernels shear with bit-decomposed roll+select passes,
+// transpose around them and conjugate the flips through the shift vectors,
 // because Mosaic has no reverse and lane rolls are slow.  None of that binds
-// here: every output pixel (b, y, x) walks back to its one source pixel.
-//   shear 3 (per row y):       x2 = x  - sh1[y]    in [0, S) or the pixel is 0
-//   shear 2 (per column x2):   y1 = y  - sh2[x2]   in [0, S) or 0
-//   shear 1 (per row y1):      x1 = x2 - sh1[y1]   in [0, S) or 0
-//   quarter turn and user flip, composed into one D4 element
-//   (out = Fx^fx Fy^fy T^t of the crop, ops/augment.py:_D4_TABLE),
-//   then the crop offset (clamped to the canvas like lax.dynamic_slice).
-// The mask zones are in output coordinates, so no zone needs adjusting.
+// here: every output pixel (b, y, x) walks back through the three shears
+// and the D4 element (shear_walk.cuh), then the crop offset (clamped to the
+// canvas like lax.dynamic_slice), to its one source pixel.  The quarter
+// turn and user flip compose into one D4 element (out = Fx^fx Fy^fy T^t of
+// the crop, ops/augment.py:_D4_TABLE).  The mask zones are in output
+// coordinates, so no zone needs adjusting.
 //
 // Bound.  Memory bandwidth: about 1.2 MB read (the crop's pixels, at sector
 // granularity) and 1 MB written per 512 px image, against a few dozen
@@ -37,6 +46,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "shear_walk.cuh"
 
 namespace {
 
@@ -57,25 +68,32 @@ __device__ __forceinline__ int crop_offset(int off, int S, int SIN) {
   return min(max(off, 0), SIN - S);
 }
 
-// Source pixel of output (y, x): the inverse of crop -> D4 -> three shears.
-__device__ __forceinline__ int32_t gather_pixel(
-    const int32_t* __restrict__ img, const int32_t* __restrict__ sh1,
-    const int32_t* __restrict__ sh2, int4 item, int y, int x, int S, int SIN) {
-  const int x2 = x - sh1[y];
-  if (x2 < 0 || x2 >= S) return 0;
-  const int y1 = y - sh2[x2];
-  if (y1 < 0 || y1 >= S) return 0;
-  const int x1 = x2 - sh1[y1];
-  if (x1 < 0 || x1 >= S) return 0;
-  const int d4 = item.z;
-  const int a = (d4 & 2) ? S - 1 - y1 : y1;
-  const int c = (d4 & 1) ? S - 1 - x1 : x1;
-  const int row = (d4 & 4) ? c : a;
-  const int col = (d4 & 4) ? a : c;
-  const int y0 = crop_offset(item.x, S, SIN);
-  const int x0 = crop_offset(item.y, S, SIN);
-  return img[(size_t)(y0 + row) * SIN + (x0 + col)];
-}
+// Pass 1's sources.  load(b, item, row, col, S) is the pixel at (row, col)
+// of item b's S x S crop, packed R | G << 8 | B << 16; pass 2 ignores any
+// alpha byte and writes its own.
+//
+// The packed RGBA canvases [B, SIN, SIN] int32, cropped at the item's
+// offsets (item.x, item.y).
+struct PackedCanvas {
+  const int32_t* img;
+  int SIN;
+  __device__ __forceinline__ int32_t load(int b, int4 item, int row, int col,
+                                          int S) const {
+    const int y0 = crop_offset(item.x, S, SIN);
+    const int x0 = crop_offset(item.y, S, SIN);
+    return img[((size_t)b * SIN + (y0 + row)) * SIN + (x0 + col)];
+  }
+};
+
+// The RGB crops [B, S, S, 3] uint8, read three bytes per pixel.
+struct RgbCrop {
+  const uint8_t* img;
+  __device__ __forceinline__ int32_t load(int b, int4, int row, int col,
+                                          int S) const {
+    const uint8_t* p = img + (((size_t)b * S + row) * S + col) * 3;
+    return (int32_t)p[0] | ((int32_t)p[1] << 8) | ((int32_t)p[2] << 16);
+  }
+};
 
 __device__ __forceinline__ float brighten(int ch, float fb) {
   return floorf(fminf(__fmul_rn((float)ch, fb), 255.f));
@@ -91,11 +109,12 @@ __device__ __forceinline__ float blend(float deg, float x, float f) {
   return floorf(fminf(fmaxf(t, 0.f), 255.f));
 }
 
+template <class Source>
 __global__ void __launch_bounds__(kThreads) gather_luma_kernel(
-    const int32_t* __restrict__ packed, const int4* __restrict__ items,
+    const Source src, const int4* __restrict__ items,
     const int32_t* __restrict__ sh1, const int32_t* __restrict__ sh2,
     const float* __restrict__ params, int32_t* __restrict__ out,
-    unsigned long long* __restrict__ lum_sums, int S, int SIN) {
+    unsigned long long* __restrict__ lum_sums, int S) {
   const int b = blockIdx.y;
   const int n = S * S;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
@@ -103,9 +122,13 @@ __global__ void __launch_bounds__(kThreads) gather_luma_kernel(
   if (idx < n) {
     const int y = idx / S;
     const int x = idx - y * S;
-    const int32_t v = gather_pixel(
-        packed + (size_t)b * SIN * SIN, sh1 + (size_t)b * S,
-        sh2 + (size_t)b * S, items[b], y, x, S, SIN);
+    const int4 item = items[b];
+    int row, col;
+    const int32_t v =
+        ipp::shear_source(sh1 + (size_t)b * S, sh2 + (size_t)b * S, item.z, y,
+                          x, S, row, col)
+            ? src.load(b, item, row, col, S)
+            : 0;
     out[(size_t)b * n + idx] = v;
     const float fb = fmaxf(params[b * 8 + 0], 0.f);
     lum = luma(brighten(v & 0xFF, fb), brighten((v >> 8) & 0xFF, fb),
@@ -181,20 +204,15 @@ __global__ void __launch_bounds__(kThreads) finish_kernel(
                   (masked ? 0u : 0xFF000000u));
 }
 
-}  // namespace
-
-// items: [B] of (y0, x0, d4 code, unused) int32; sh1, sh2: [B, S] int32;
-// params: [B, 8] float32; filters_host: host int32 [n_filters, 10] rows of
-// (lo h s v, hi h s v, top bottom left right); out: [B, S, S] int32;
-// lum_sums: [B] 64-bit scratch.  Returns cudaGetLastError() after launching.
-extern "C" int ipp_augment_full(const int32_t* packed, int32_t* out,
-                                unsigned long long* lum_sums,
-                                const int32_t* items, const int32_t* sh1,
-                                const int32_t* sh2, const float* params,
-                                const int32_t* filters_host, int n_filters,
-                                int B, int SIN, int S, void* stream) {
+// The two launches of both entry points: gather + luma sums, then finish.
+template <class Source>
+int launch_chain(const Source src, int32_t* out,
+                 unsigned long long* lum_sums, const int32_t* items,
+                 const int32_t* sh1, const int32_t* sh2, const float* params,
+                 const int32_t* filters_host, int n_filters, int B, int S,
+                 void* stream) {
   if (n_filters < 0 || n_filters > kMaxFilters || B < 1 || B > 65535 ||
-      S < 1 || SIN < S)
+      S < 1 || S > 46340)
     return (int)cudaErrorInvalidValue;
   FilterStack fs{};
   fs.n = n_filters;
@@ -211,11 +229,40 @@ extern "C" int ipp_augment_full(const int32_t* packed, int32_t* out,
       cudaMemsetAsync(lum_sums, 0, sizeof(unsigned long long) * B, st);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S * S + kThreads - 1) / kThreads, B);
-  gather_luma_kernel<<<grid, kThreads, 0, st>>>(
-      packed, reinterpret_cast<const int4*>(items), sh1, sh2, params, out,
-      lum_sums, S, SIN);
+  gather_luma_kernel<Source><<<grid, kThreads, 0, st>>>(
+      src, reinterpret_cast<const int4*>(items), sh1, sh2, params, out,
+      lum_sums, S);
   finish_kernel<<<grid, kThreads, 0, st>>>(out, lum_sums, params, fs, S);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// items: [B] of (y0, x0, d4 code, unused) int32; sh1, sh2: [B, S] int32;
+// params: [B, 8] float32; filters_host: host int32 [n_filters, 10] rows of
+// (lo h s v, hi h s v, top bottom left right); out: [B, S, S] int32;
+// lum_sums: [B] 64-bit scratch.  Returns cudaGetLastError() after launching.
+extern "C" int ipp_augment_full(const int32_t* packed, int32_t* out,
+                                unsigned long long* lum_sums,
+                                const int32_t* items, const int32_t* sh1,
+                                const int32_t* sh2, const float* params,
+                                const int32_t* filters_host, int n_filters,
+                                int B, int SIN, int S, void* stream) {
+  if (SIN < S) return (int)cudaErrorInvalidValue;
+  return launch_chain(PackedCanvas{packed, SIN}, out, lum_sums, items, sh1,
+                      sh2, params, filters_host, n_filters, B, S, stream);
+}
+
+// rgb: [B, S, S, 3] uint8 crops; items: [B] of (0, 0, d4 code, unused)
+// int32; the other arguments as for ipp_augment_full.
+extern "C" int ipp_augment_fused(const uint8_t* rgb, int32_t* out,
+                                 unsigned long long* lum_sums,
+                                 const int32_t* items, const int32_t* sh1,
+                                 const int32_t* sh2, const float* params,
+                                 const int32_t* filters_host, int n_filters,
+                                 int B, int S, void* stream) {
+  return launch_chain(RgbCrop{rgb}, out, lum_sums, items, sh1, sh2, params,
+                      filters_host, n_filters, B, S, stream);
 }
 
 extern "C" const char* ipp_cuda_error_string(int code) {

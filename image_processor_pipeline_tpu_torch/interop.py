@@ -3,8 +3,10 @@
 The chain has no weights.  Its state is the per-item draws (crop offsets,
 angles, flip codes, enhance parameters) and the static HSV filter stack.
 ``draws_from_jax`` takes the JAX package's arrays as numpy and returns the
-port's tensors; ``filter_stack`` rounds the filter bounds the way cv2.inRange
-and ops/pallas/augment.py:602-605 do.  Nothing here imports jax.
+port's tensors; ``shifts_from_jax`` does the same for the rotation's shift
+vectors, so a kernel can be held against the JAX package given its own
+vectors; ``filter_stack`` rounds the filter bounds the way cv2.inRange and
+ops/pallas/augment.py:602-605 do.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -21,6 +23,13 @@ def draws_from_jax(y0, x0, angles, flips, prms, device="cpu"):
 
     return (put(y0, np.int32), put(x0, np.int32), put(angles, np.float32),
             put(flips, np.int32), put(prms, np.float32))
+
+
+def shifts_from_jax(quad, sh1, sh2, device="cpu"):
+    """The JAX package's (quad [B], sh1 [B, S], sh2 [B, S]) shift vectors
+    as int32 tensors on ``device``, in the form the port's rotations take."""
+    return tuple(torch.as_tensor(np.asarray(a).astype(np.int32),
+                                 device=device) for a in (quad, sh1, sh2))
 
 
 def _sat(v) -> int:

@@ -1,9 +1,11 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources in ``csrc/`` are compiled at first use by ``nvcc`` into one
-shared library with a plain C interface under ``_build/`` and loaded with
-ctypes (no PyTorch headers, so a build takes seconds).  An flock serialises
-the build across processes; the library is rebuilt when a source is newer.
+The sources in ``csrc/`` are compiled at first use by ``nvcc``, one
+process per source started together, and linked into one shared library
+with a plain C interface under ``_build/``, loaded with ctypes (no PyTorch
+headers, so a build takes seconds).  An flock serialises the build across
+processes; the library is rebuilt when any file under ``csrc/``, a shared
+header included, is newer than it.
 
 ``launch_counts`` counts, per kernel, the wrapper calls that launched it on
 the device, so a run can show that its main path went through the kernel.
@@ -22,17 +24,22 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("augment_full.cu",)
+SOURCES = ("augment_full.cu", "shear_rotate.cu")
 _SO = BUILD / "libipp_cuda.so"
 
 # sm_90a (Hopper); --fmad=false keeps every multiply and add separately
 # rounded, as the plain torch versions are; IEEE division (no fast math)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
-launch_counts = {"augment_full": 0}
+# one entry per kernel path, named after the TPU kernel it replaces:
+# augment_full (_augment_full_kernel), augment_fused (_augment_kernel),
+# shear_rotate_packed (_shear_kernel_packed, C in {3, 4}) and shear_rotate
+# (_shear_kernel, any other C)
+launch_counts = {"augment_full": 0, "augment_fused": 0,
+                 "shear_rotate_packed": 0, "shear_rotate": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -53,25 +60,55 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _stale(csrc: Path, so: Path) -> bool:
+    """True when the library ``so`` is missing or older than any file
+    under ``csrc``: a header shared by several sources changes them all."""
+    if not so.exists():
+        return True
+    built = so.stat().st_mtime
+    return any(p.stat().st_mtime > built
+               for p in csrc.rglob("*") if p.is_file())
+
+
 def _build() -> Path:
     global build_log
-    srcs = [CSRC / s for s in SOURCES]
     BUILD.mkdir(exist_ok=True)
     with open(BUILD / ".lock", "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
-        if _SO.exists() and all(s.stat().st_mtime <= _SO.stat().st_mtime
-                                for s in srcs):
+        if not _stale(CSRC, _SO):
             return _SO
-        tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
-            capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
+        nvcc, pid = _nvcc(), os.getpid()
+        objs = [BUILD / f"{Path(s).stem}.{pid}.o" for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        logs, failed = [], []
+        try:
+            for src, proc in zip(SOURCES, procs):
+                out, err = proc.communicate(timeout=600)
+                logs.append(f"{src}:\n{out}{err}")
+                if proc.returncode != 0:
+                    failed.append(f"{src}: code {proc.returncode}\n{err}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp = _SO.with_name(f"{_SO.name}.{pid}.tmp")
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True, timeout=600)
+            if link.returncode != 0:
+                failed.append(f"link: code {link.returncode}\n{link.stderr}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, _SO)
-        build_log = proc.stdout + proc.stderr
+        build_log = "\n".join(logs)
     return _SO
 
 
@@ -83,7 +120,11 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.ipp_augment_full.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-            lib.ipp_augment_full.restype = i32
+            lib.ipp_augment_fused.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+            lib.ipp_shear_rotate.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+            for fn in (lib.ipp_augment_full, lib.ipp_augment_fused,
+                       lib.ipp_shear_rotate):
+                fn.restype = i32
             lib.ipp_cuda_error_string.argtypes = [i32]
             lib.ipp_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

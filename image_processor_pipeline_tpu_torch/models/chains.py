@@ -7,13 +7,26 @@ image_processor_pipeline_tpu/models/chains.py).
 
 The per-item draws are made on the host by ``random`` (bit-exact to the JAX
 package's ``jax.random`` draws for the same seeds), vectorised over the
-batch; the pixels stay on the device.  Modes:
+batch; the pixels stay on the device.  Modes, each with the counterpart
+in the JAX package whose output it equals:
 
-  'cuda_full'       the hand-written CUDA kernel (counterpart of the JAX
-                    package's 'pallas_full'); plain twin on a CPU tensor;
-  'full_reference'  the plain torch twin of that kernel;
-  'shear'           crop → rotate_square_shear → flip → mask → enhance, the
-                    JAX package's XLA 'shear' mode.
+  'cuda_full'       crop → flip → rotate → mask → enhance in one
+                    hand-written CUDA kernel pair ('pallas_full'); the plain
+                    twin on a CPU tensor;
+  'full_reference'  the plain torch twin of that kernel ('full_reference');
+  'shear'           crop → rotate_square_shear → flip → mask → enhance in
+                    torch ops, the XLA 'shear' mode;
+  'cuda_shear'      the same stages with the rotation in the hand-written
+                    CUDA shear kernel ('pallas'); the plain twin on a CPU
+                    tensor;
+  'cuda_fused'      crop, then flip → rotate → mask → enhance in one
+                    hand-written CUDA kernel pair ('pallas_fused'); the
+                    plain twin on a CPU tensor;
+  'fused_reference' the plain torch twin of that kernel ('fused_reference').
+
+The 'full' and 'fused' modes flip before they rotate and the two 'shear'
+modes rotate before they flip, so for the same seeds the first four give
+one image and the two 'shear' modes another.
 """
 
 from __future__ import annotations
@@ -28,9 +41,14 @@ from image_processor_pipeline_tpu_torch.ops import color as color_ops
 from image_processor_pipeline_tpu_torch.ops import geometry, photometric
 from image_processor_pipeline_tpu_torch.ops.augment import (
     _crop,
+    augment_finish_reference,
     augment_full_reference,
+    augment_fused,
     augment_fused_full,
     pack_rgba,
+)
+from image_processor_pipeline_tpu_torch.ops.rotate import (
+    rotate_square_shear_batch,
 )
 
 CROP = 512
@@ -41,7 +59,8 @@ _FILTER_LOWERS = ((35.0, 60.0, 60.0), (100.0, 40.0, 40.0))
 _FILTER_UPPERS = ((85.0, 255.0, 255.0), (140.0, 230.0, 230.0))
 _FILTER_ZONES = ((0, 0, 0, 0), (16, 16, 8, 8))
 
-MODES = ("cuda_full", "full_reference", "shear")
+MODES = ("cuda_full", "full_reference", "shear", "cuda_shear", "cuda_fused",
+         "fused_reference")
 
 
 def _seeds(seeds):
@@ -117,14 +136,20 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
     flips, prms = _flip_and_params(seeds)
     y0, x0, angles, flips, prms = (torch.as_tensor(a, device=dev)
                                    for a in (y0, x0, angles, flips, prms))
-    if rotation == "shear":
-        cropped = _crop_one(images[..., :3], y0, x0, crop)
-        rotated = geometry.rotate_square_shear(cropped, angles)
-        return _finish_one(rotated, flips, prms, crop)
-    fn = augment_fused_full if rotation == "cuda_full" \
-        else augment_full_reference
-    return fn(pack_rgba(images), y0, x0, angles, prms, flips,
-              _FILTER_LOWERS, _FILTER_UPPERS, _FILTER_ZONES, crop=crop)
+    if rotation in ("cuda_full", "full_reference"):
+        fn = augment_fused_full if rotation == "cuda_full" \
+            else augment_full_reference
+        return fn(pack_rgba(images), y0, x0, angles, prms, flips,
+                  _FILTER_LOWERS, _FILTER_UPPERS, _FILTER_ZONES, crop=crop)
+    cropped = _crop_one(images[..., :3], y0, x0, crop).contiguous()
+    if rotation in ("cuda_fused", "fused_reference"):
+        fn = augment_fused if rotation == "cuda_fused" \
+            else augment_finish_reference
+        return fn(cropped, angles, prms, _FILTER_LOWERS, _FILTER_UPPERS,
+                  _FILTER_ZONES, flips=flips)
+    rotate = geometry.rotate_square_shear if rotation == "shear" \
+        else rotate_square_shear_batch
+    return _finish_one(rotate(cropped, angles), flips, prms, crop)
 
 
 class AugmentChain(nn.Module):

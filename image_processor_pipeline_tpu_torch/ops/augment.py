@@ -1,16 +1,21 @@
-"""The flagship chain's kernel wrapper, its glue and its plain twin (port of
-image_processor_pipeline_tpu/ops/pallas/augment.py:153-272, 435-496,
-498-678).
+"""The flagship chain's kernel wrappers, their glue and their plain twins
+(port of image_processor_pipeline_tpu/ops/pallas/augment.py:153-272,
+435-496, 498-747).
 
 ``augment_fused_full`` has the contract of ``augment_fused_pallas_full``:
 packed RGBA canvases in, ``[B, S, S, 4]`` uint8 RGBA out, byte-identical to
-``augment_full_reference``.  On a CPU tensor it runs that plain version; on
-a CUDA tensor it launches the hand-written kernel in
-``csrc/augment_full.cu`` (replacing the TPU kernel ``_augment_full_kernel``)
-or raises.  Both get the same shift vectors, computed once here.
+``augment_full_reference``.  ``augment_fused`` has the contract of
+``augment_fused_pallas``: RGB crops in, RGBA out, byte-identical to
+``augment_finish_reference``.  On a CPU tensor each runs its plain version;
+on a CUDA tensor it launches its hand-written kernel in
+``csrc/augment_full.cu`` (replacing the TPU kernels ``_augment_full_kernel``
+and ``_augment_kernel``) or raises.  Kernel and plain version get the same
+shift vectors, computed once in the wrapper.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -63,6 +68,13 @@ _D4_TABLE = _dihedral_table()
 # the table as one code per entry, transpose<<2 | fy<<1 | fx, for the kernel
 _D4_CODES = (_D4_TABLE[:, 0] * 4 + _D4_TABLE[:, 1] * 2
              + _D4_TABLE[:, 2]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def d4_codes(device: torch.device):
+    """_D4_CODES as a tensor on ``device``, copied there once: a copy from
+    pageable host memory synchronises the stream on every call."""
+    return torch.as_tensor(_D4_CODES, device=device)
 
 
 def flip_bits_through_transpose(tbit, fy, fx):
@@ -147,7 +159,28 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
                          f"{t.dtype} {tuple(t.shape)}")
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, packed on {device}")
+        raise ValueError(f"{name} is on {t.device}, the images on {device}")
+
+
+def _launch_chain(entry, src, items, shifts, enh_params, lowers, uppers,
+                  zones, B, S, *sizes):
+    """Launch one of the chain kernels (``entry`` with the C signature of
+    csrc/augment_full.cu) on ``src``'s device; returns [B, S, S, 4] uint8."""
+    dev = src.device
+    quad, sh1, sh2 = (t.contiguous() for t in shifts)
+    params = enh_params.contiguous()
+    filt = torch.cat(filter_stack(lowers, uppers, zones), dim=1).contiguous()
+    out = torch.empty((B, S, S), dtype=torch.int32, device=dev)
+    lum_sums = torch.empty(B, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = entry(
+            src.data_ptr(), out.data_ptr(), lum_sums.data_ptr(),
+            items.data_ptr(), sh1.data_ptr(), sh2.data_ptr(),
+            params.data_ptr(), filt.data_ptr(), filt.shape[0], B, *sizes, S,
+            stream)
+    kernels.check(code)
+    return out.view(torch.uint8).view(B, S, S, 4)
 
 
 def augment_fused_full(packed, y0, x0, angles, enh_params, flips, lowers,
@@ -183,23 +216,61 @@ def augment_fused_full(packed, y0, x0, angles, enh_params, flips, lowers,
                                       shifts=shifts)
     if dev.type != "cuda":
         raise ValueError(f"augment_fused_full runs on cpu or cuda, not {dev}")
-    quad, sh1, sh2 = (t.contiguous() for t in shifts)
-    codes = torch.as_tensor(_D4_CODES, device=dev)[
-        quad * 4 + flips.clamp(0, 3)]
+    codes = d4_codes(dev)[
+        shifts[0] * 4 + flips.clamp(0, 3)]
     # one 16-byte row per image: (y0, x0, D4 code, unused)
     items = torch.stack([y0, x0, codes, torch.zeros_like(codes)], dim=1)
-    params = enh_params.contiguous()
-    filt = torch.cat(filter_stack(lowers, uppers, zones), dim=1).contiguous()
-    out = torch.empty((B, S, S), dtype=torch.int32, device=dev)
-    lum_sums = torch.empty(B, dtype=torch.int64, device=dev)
-    lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.ipp_augment_full(
-            packed.data_ptr(), out.data_ptr(), lum_sums.data_ptr(),
-            items.data_ptr(), sh1.data_ptr(), sh2.data_ptr(),
-            params.data_ptr(), filt.data_ptr(), filt.shape[0], B, SIN, S,
-            stream)
-    kernels.check(code)
+    out = _launch_chain(kernels.library().ipp_augment_full, packed, items,
+                        shifts, enh_params, lowers, uppers, zones, B, S, SIN)
     kernels.launch_counts["augment_full"] += 1
-    return out.view(torch.uint8).view(B, S, S, 4)
+    return out
+
+
+def augment_fused(images, angles, enh_params, lowers, uppers, zones,
+                  flips=None, shifts=None):
+    """The post-crop chain for a batch: flip → rotate → mask → enhance.
+
+    images: [B, S, S, 3] uint8 RGB crops, contiguous; angles: [B] float32
+    degrees; enh_params: [B, 8] float32 (brightness, contrast, color, gain
+    r/g/b); flips: [B] int32 user flip codes (0=o, 1=h, 2=v, 3=hv), none
+    by default; shifts: (quad [B], sh1 [B, S], sh2 [B, S]) int32 to use
+    instead of computing them from ``angles``; lowers/uppers/zones: the
+    static filter stack.  Returns [B, S, S, 4] uint8 RGBA.  CPU tensors run
+    augment_finish_reference; CUDA tensors launch the kernel (no fallback);
+    other devices raise.
+    """
+    if not isinstance(images, torch.Tensor) or images.dtype != torch.uint8 \
+            or images.ndim != 4 or images.shape[1] != images.shape[2] \
+            or images.shape[3] != 3:
+        raise ValueError("images must be a uint8 [B, S, S, 3] tensor")
+    if not images.is_contiguous():
+        raise ValueError("images must be contiguous")
+    B, S, dev = images.shape[0], images.shape[1], images.device
+    if flips is None:
+        flips = torch.zeros(B, dtype=torch.int32, device=dev)
+    for name, t, dtype, shape in (
+            ("angles", angles, torch.float32, (B,)),
+            ("enh_params", enh_params, torch.float32, (B, 8)),
+            ("flips", flips, torch.int32, (B,))):
+        _check(name, t, dtype, shape, dev)
+    if shifts is None:
+        shifts = _shifts(angles, S)
+    for name, t, shape in zip(("quad", "sh1", "sh2"), shifts,
+                              ((B,), (B, S), (B, S))):
+        _check(name, t, torch.int32, shape, dev)
+    if dev.type == "cpu":
+        return augment_finish_reference(images, angles, enh_params, lowers,
+                                        uppers, zones, flips=flips,
+                                        shifts=shifts)
+    if dev.type != "cuda":
+        raise ValueError(f"augment_fused runs on cpu or cuda, not {dev}")
+    shifts = geometry.applied_shifts(*shifts, S)
+    codes = d4_codes(dev)[
+        shifts[0] * 4 + flips.clamp(0, 3)]
+    zeros = torch.zeros_like(codes)
+    # one 16-byte row per image: (0, 0, D4 code, unused), no crop offsets
+    items = torch.stack([zeros, zeros, codes, zeros], dim=1)
+    out = _launch_chain(kernels.library().ipp_augment_fused, images, items,
+                        shifts, enh_params, lowers, uppers, zones, B, S)
+    kernels.launch_counts["augment_fused"] += 1
+    return out

@@ -70,10 +70,25 @@ def shear_params(angles, H: int):
     iy = torch.arange(H, dtype=torch.float32, device=theta.device) - c
     sh1 = torch.round(a[:, None] * iy[None, :]).to(torch.int32)
     sh2 = torch.round(b[:, None] * iy[None, :]).to(torch.int32)
+    return (quad, *_clip_shifts(sh1, sh2, H))
+
+
+def _clip_shifts(sh1, sh2, H: int):
+    """sh1 and sh2 clipped to the ranges ``_row_shift`` applies on an H×H
+    canvas (``shear13_bits_for`` and ``shift_bits_for`` bits)."""
     o13 = 1 << (shear13_bits_for(H) - 1)
     o2 = 1 << (shift_bits_for(H) - 1)
-    return (quad, sh1.clamp(-(o13 - 1), o13 - 1),
-            sh2.clamp(-(o2 - 1), o2 - 1))
+    return sh1.clamp(-(o13 - 1), o13 - 1), sh2.clamp(-(o2 - 1), o2 - 1)
+
+
+def applied_shifts(quad, sh1, sh2, H: int):
+    """The (quad, sh1, sh2) that ``rotate_square_shear_by`` applies on an
+    H×H canvas: a quad outside [0, 4) turns nothing, and each shift is
+    clipped as ``_row_shift`` clips it.  A kernel given these applies the
+    plain version's permutation for any vectors; ``shear_params``' own
+    vectors come back unchanged."""
+    quad = torch.where((quad >= 0) & (quad < 4), quad, 0)
+    return (quad, *_clip_shifts(sh1, sh2, H))
 
 
 def _row_shift(img, shifts, axis: int = 1, bits: int = 9):

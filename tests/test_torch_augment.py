@@ -1,8 +1,10 @@
-"""The port's kernel glue, plain twin and wrapper against the JAX package:
+"""The port's kernel glue, plain twins and wrappers against the JAX package:
 augment_full_reference byte for byte against JAX's (eager) and against the
-Pallas kernel in interpret mode; the wrapper's CPU path, checks and counter;
-the kernel itself is held against the plain twin on the card in
-test_torch_cuda.py."""
+Pallas kernel in interpret mode; augment_fused byte for byte against JAX's
+eager augment_finish_reference and, at the JAX package's own tolerance,
+against its Pallas kernel in interpret mode; the wrappers' CPU paths,
+checks and counters.  The kernels themselves are held against the plain
+twins on the card in test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -176,3 +178,95 @@ def test_filter_stack_rounds_like_cv2():
     assert zn.tolist() == [[1, 2, 3, 4]] and lo.dtype == torch.int32
     with pytest.raises(ValueError):
         interop.filter_stack(((1, 2),), ((3, 4),), ((0, 0, 0, 0),))
+
+
+@pytest.fixture(scope="module", params=[0, 2], ids=["angles0", "angles2"])
+def crops8(request):
+    """B=8 RGB crops of 64 px: every flip code, and over the two params
+    all ten boundary angles."""
+    imgs, _, _, angles, prms, flips = make_batch(
+        8, 64, 64, seed=10 + request.param, first_angle=request.param)
+    return imgs, angles, prms, flips
+
+
+def fused_args(imgs, angles, prms, flips):
+    _, _, tang, tflips, tprms = interop.draws_from_jax(
+        np.zeros(len(imgs)), np.zeros(len(imgs)), angles, flips, prms)
+    return torch.as_tensor(imgs), tang, tprms, tflips
+
+
+def test_augment_fused_matches_jax_finish_reference(crops8):
+    """On a CPU tensor the wrapper runs the plain twin; given JAX's shift
+    vectors it equals JAX's eager augment_finish_reference byte for byte."""
+    imgs, angles, prms, flips = crops8
+    want = np.asarray(jaug.augment_finish_reference(
+        jnp.asarray(imgs), jnp.asarray(angles), jnp.asarray(prms), LOWERS,
+        UPPERS, ZONES, flips=jnp.asarray(flips)))
+    images, tang, tprms, tflips = fused_args(*crops8)
+    kernels.reset_launch_counts()
+    got = taug.augment_fused(images, tang, tprms, LOWERS, UPPERS, ZONES,
+                             flips=tflips, shifts=jax_shifts(angles, 64))
+    assert all(n == 0 for n in kernels.launch_counts.values())
+    assert got.shape == (8, 64, 64, 4) and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_augment_fused_within_jax_tolerance_of_pallas_interpret(crops8):
+    """_augment_kernel in interpret mode is within 1 of the JAX package's
+    own reference with more than 99.9 % of bytes equal
+    (tests/test_chains.py:73-93); the port is held to the same bound."""
+    imgs, angles, prms, flips = crops8
+    want = np.asarray(jaug.augment_fused_pallas(
+        jnp.asarray(imgs), jnp.asarray(angles), jnp.asarray(prms), LOWERS,
+        UPPERS, ZONES, interpret=True, flips=jnp.asarray(flips)))
+    images, tang, tprms, tflips = fused_args(*crops8)
+    got = taug.augment_fused(images, tang, tprms, LOWERS, UPPERS, ZONES,
+                             flips=tflips,
+                             shifts=jax_shifts(angles, 64)).numpy()
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert (got == want).mean() > 0.999
+
+
+def test_augment_fused_equals_full_reference_of_the_crops(crops8):
+    """The post-crop wrapper computes augment_full_reference's function on
+    an uncropped canvas, with no flips by default."""
+    images, tang, tprms, tflips = fused_args(*crops8)
+    zeros = torch.zeros(8, dtype=torch.int32)
+    full = taug.augment_full_reference(
+        taug.pack_rgba(images), zeros, zeros, tang, tprms, tflips, LOWERS,
+        UPPERS, ZONES, crop=64)
+    assert torch.equal(taug.augment_fused(images, tang, tprms, LOWERS,
+                                          UPPERS, ZONES, flips=tflips), full)
+    assert torch.equal(
+        taug.augment_fused(images, tang, tprms, LOWERS, UPPERS, ZONES),
+        taug.augment_finish_reference(images, tang, tprms, LOWERS, UPPERS,
+                                      ZONES))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "channels", "square", "contiguous",
+                                 "device", "param_shape", "flip_dtype",
+                                 "shift_shape"])
+def test_augment_fused_rejects_bad_inputs(bad):
+    imgs, _, _, angles, prms, flips = make_batch(2, 16, 16, seed=4)
+    images, tang, tprms, tflips = fused_args(imgs, angles, prms, flips)
+    shifts = None
+    if bad == "dtype":
+        images = images.int()
+    elif bad == "channels":
+        images = taug.pack_rgba(images)[..., None].view(torch.uint8)
+    elif bad == "square":
+        images = images[:, :, :12].contiguous()
+    elif bad == "contiguous":
+        images = images.transpose(1, 2)
+    elif bad == "device":
+        images = images.to("meta")
+    elif bad == "param_shape":
+        tprms = tprms[:, :6]
+    elif bad == "flip_dtype":
+        tflips = tflips.long()
+    else:
+        quad, sh1, sh2 = taug._shifts(tang, 16)
+        shifts = (quad, sh1[:, :8], sh2)
+    with pytest.raises(ValueError):
+        taug.augment_fused(images, tang, tprms, LOWERS, UPPERS, ZONES,
+                           flips=tflips, shifts=shifts)

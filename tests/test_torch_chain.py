@@ -27,6 +27,7 @@ PORT_MODULES = (
     "image_processor_pipeline_tpu_torch.ops.color",
     "image_processor_pipeline_tpu_torch.ops.photometric",
     "image_processor_pipeline_tpu_torch.ops.augment",
+    "image_processor_pipeline_tpu_torch.ops.rotate",
     "image_processor_pipeline_tpu_torch.models",
     "image_processor_pipeline_tpu_torch.models.chains",
 )
@@ -63,9 +64,13 @@ def assert_chain_equal(got, want, same):
 
 @pytest.mark.parametrize("mode,jax_mode", [
     ("full_reference", "full_reference"), ("shear", "shear"),
-    ("cuda_full", "full_reference")])
+    ("cuda_full", "full_reference"), ("cuda_shear", "shear"),
+    ("cuda_fused", "fused_reference"),
+    ("fused_reference", "fused_reference")])
 def test_augment_chain_matches_jax_96_to_64(mode, jax_mode):
-    """On CPU tensors 'cuda_full' runs the kernel's plain twin."""
+    """On CPU tensors the 'cuda_*' modes run their kernels' plain twins.
+    JAX's 'pallas' mode needs a TPU, so 'cuda_shear' is held against its
+    XLA twin 'shear'."""
     images, xywhn, seeds = chain_inputs(4, 96, seed=11)
     want = np.asarray(jchains.augment_chain(
         jnp.asarray(images), jnp.asarray(xywhn), jnp.asarray(seeds), 64,
@@ -73,9 +78,24 @@ def test_augment_chain_matches_jax_96_to_64(mode, jax_mode):
     kernels.reset_launch_counts()
     got = tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
                                 mode)
-    assert kernels.launch_counts["augment_full"] == 0
+    assert all(n == 0 for n in kernels.launch_counts.values())
     assert got.shape == (4, 64, 64, 4) and got.dtype == torch.uint8
     assert_chain_equal(got.numpy(), want, f1_items(images, xywhn, seeds, 64))
+
+
+def test_cuda_fused_equals_cuda_full_on_cpu():
+    """The post-crop kernel path and the whole-chain kernel path compute
+    one function: flip, then rotate, mask and enhance."""
+    images, xywhn, seeds = chain_inputs(8, 96, seed=12)
+    images = torch.as_tensor(images)
+    fused = tchains.augment_chain(images, xywhn, seeds, 64, "cuda_fused")
+    full = tchains.augment_chain(images, xywhn, seeds, 64, "cuda_full")
+    assert torch.equal(fused, full)
+    flips, _ = tchains._flip_and_params(seeds)
+    assert {1, 2} & set(flips.tolist()), "no single-axis flip drawn"
+    # a single-axis flip does not commute with the rotation
+    shear = tchains.augment_chain(images, xywhn, seeds, 64, "cuda_shear")
+    assert not torch.equal(shear, fused)
 
 
 def test_augment_chain_module_matches_jax_640():

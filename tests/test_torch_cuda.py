@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernel against its plain PyTorch twin on the
-card, byte for byte.  Needs a CUDA card and skips without one.
+"""The port's hand-written CUDA kernels against their plain PyTorch twins on
+the card, byte for byte, and the chain modes that run through them.  Needs
+a CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs where jax
 is not installed, with the repository's conftest (which imports jax) left
@@ -14,7 +15,7 @@ import torch
 
 from image_processor_pipeline_tpu_torch import interop, kernels
 from image_processor_pipeline_tpu_torch.models import chains
-from image_processor_pipeline_tpu_torch.ops import augment
+from image_processor_pipeline_tpu_torch.ops import augment, geometry, rotate
 
 FILTERS = (chains._FILTER_LOWERS, chains._FILTER_UPPERS,
            chains._FILTER_ZONES)
@@ -65,5 +66,63 @@ def test_chain_through_kernel_on_card(cuda_device):
     assert kernels.launch_counts["augment_full"] == 1
     want = chains.augment_chain(images, xywhn, seeds,
                                 rotation="full_reference")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def rotate_args(B, S, C, dev):
+    """Images and shift vectors covering the boundary angles (every quad)."""
+    rng = np.random.default_rng(S * 10 + C)
+    imgs = torch.as_tensor(rng.integers(0, 256, (B, S, S, C), np.uint8),
+                           device=dev)
+    angles = (BOUNDARY_ANGLES + tuple(rng.uniform(1, 359, B)))[:B]
+    angles = torch.as_tensor(np.asarray(angles, np.float32), device=dev)
+    return imgs, geometry.shear_params(angles, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C,B", [(64, 1, 16), (64, 2, 16), (64, 3, 16),
+                                   (64, 4, 16), (512, 3, 12), (512, 4, 12),
+                                   (512, 1, 12), (768, 1, 12)])
+def test_shear_rotate_matches_plain_on_card(cuda_device, S, C, B):
+    imgs, shifts = rotate_args(B, S, C, cuda_device)
+    kernels.reset_launch_counts()
+    got = rotate.shear_rotate(imgs, *shifts)
+    name = "shear_rotate_packed" if C in (3, 4) else "shear_rotate"
+    assert kernels.launch_counts[name] == 1
+    assert sum(kernels.launch_counts.values()) == 1
+    want = geometry.rotate_square_shear_by(imgs, *shifts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,B", [(64, 8), (512, 4)])
+def test_augment_fused_matches_plain_on_card(cuda_device, S, B):
+    packed, _, _, angles, prms, flips = kernel_args(B, S, S, 0, cuda_device)
+    crops = packed[..., None].view(torch.uint8)[..., :3].contiguous()
+    kernels.reset_launch_counts()
+    got = augment.augment_fused(crops, angles, prms, *FILTERS, flips=flips)
+    assert kernels.launch_counts["augment_fused"] == 1
+    want = augment.augment_finish_reference(crops, angles, prms, *FILTERS,
+                                            flips=flips)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,twin,kernel", [
+    ("cuda_shear", "shear", "shear_rotate_packed"),
+    ("cuda_fused", "cuda_full", "augment_fused")])
+def test_chain_modes_through_kernels_on_card(cuda_device, mode, twin,
+                                             kernel):
+    chain = chains.AugmentChain(input_size=640, rotation=mode,
+                                device=cuda_device)
+    images, xywhn, seeds = chain.example_inputs(batch=4)
+    kernels.reset_launch_counts()
+    got = chain(images, xywhn, seeds)
+    assert kernels.launch_counts[kernel] == 1
+    assert sum(kernels.launch_counts.values()) == 1
+    want = chains.augment_chain(images, xywhn, seeds, rotation=twin)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
