@@ -3,22 +3,28 @@ CUDA card.  Run from the repository root:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from csrc/, holds each byte for
-byte against its plain PyTorch version on the card, drives the flagship
-chain (AugmentChain, 640 px input, 512 px crop) through them in the modes
+It builds the hand-written CUDA kernels from csrc/ and prints what ptxas
+and cuobjdump say of them, holds each byte for byte against its plain
+PyTorch version on the card (the chain kernel on both of its paths, for
+packed, 3- and 4-channel canvases), drives the flagship chain
+(AugmentChain, 640 px input, 512 px crop) through them in the modes
 cuda_full, cuda_shear and cuda_fused, and the batched rotation op on
 single-channel masks, checks each output against its plain twin on the
-card, times kernels and chains against their plain versions with CUDA
-events, counts how often the card's float32 tan/sin move a shift vector
-against the CPU's, and prints the card's name and power limit, a JSON line
-of the kernels and, last, a JSON status line.  Any failed phase raises, so
-the status line is printed only when every phase passed.  Without a CUDA
-card it exits non-zero.
+card, times each kernel's launch alone against its bytes bound and its
+plain version, the chain kernel's two paths and cluster sizes in turns,
+and the chains with CUDA events, profiles the chain's device work, counts
+how often the card's float32 tan/sin move a shift vector against the
+CPU's, and prints the card's name and power limit, a JSON line of the
+kernels and, last, a JSON status line.  Any failed phase raises, so the
+status line is printed only when every phase passed.  Without a CUDA card
+it exits non-zero.
 """
 
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import time
@@ -37,20 +43,21 @@ KERNELS = {
 }
 # every flip code and the rotation's boundary angles, then random ones
 ANGLES = (0.0, 44.99, 45.0, 45.01, 90.0, 135.0, 180.0, 270.0, 315.0, 358.9)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+BATCHES = (8, 64)
 
 
 def kernel_inputs(SIN, S, B, seed, dev):
     """Random canvases and draws covering the boundary angles and all flip
-    codes, as the augment_fused_full arguments before the filter stack."""
+    codes, as the augment_fused_full arguments before the filter stack:
+    the canvas as uint8 [B, SIN, SIN, 4] (alpha random)."""
     rng = np.random.default_rng(seed)
-    from image_processor_pipeline_tpu_torch.ops.augment import pack_rgba
-
-    imgs = torch.as_tensor(rng.integers(0, 256, (B, SIN, SIN, 3), np.uint8),
+    imgs = torch.as_tensor(rng.integers(0, 256, (B, SIN, SIN, 4), np.uint8),
                            device=dev)
     angles = np.asarray(ANGLES[:B] + tuple(rng.uniform(1, 359, B)),
                         np.float32)[:B]
     as_dev = lambda a, t: torch.as_tensor(np.asarray(a, t), device=dev)
-    return (pack_rgba(imgs),
+    return (imgs,
             as_dev(rng.integers(0, SIN - S + 1, B), np.int32),
             as_dev(rng.integers(0, SIN - S + 1, B), np.int32),
             as_dev(angles, np.float32),
@@ -75,7 +82,8 @@ def crop_inputs(S, C, B, seed, dev):
 
 def time_calls(fn, calls=50, windows=5):
     """Milliseconds per call, one CUDA-event window of ``calls`` calls
-    after a warm-up call, ``windows`` times; fn(i) takes the call index."""
+    after a warm-up call, ``windows`` times; fn(i) takes the call index.
+    Host time between launches counts: this times what a caller waits."""
     fn(0)
     torch.cuda.synchronize()
     per_call = []
@@ -91,11 +99,31 @@ def time_calls(fn, calls=50, windows=5):
     return per_call
 
 
+def device_ms(launch, calls=30):
+    """Device milliseconds per launch: ``calls`` launches queued behind a
+    sleeping kernel, so that the CUDA-event window holds device time alone
+    and none of the host's time between launches."""
+    launch()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # some 25 ms, far more than the queueing
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def check_equal(got, ref, what):
     """Raise unless got == ref byte for byte; returns the max abs error."""
     torch.cuda.synchronize()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(ref.shape)}")
     err = int((got.int() - ref.int()).abs().max())
-    if got.shape != ref.shape or not torch.equal(got, ref):
+    if not torch.equal(got, ref):
         raise AssertionError(f"{what}: max abs err {err}, "
                              f"{(got != ref).sum().item()} bytes differ")
     return err
@@ -140,6 +168,56 @@ def shift_vector_deltas(geometry, dev, n=200_000, S=512, chunk=20_000):
     return diff
 
 
+def sass_counts(so_path):
+    """Static SASS instruction counts of each kernel in the library (by
+    cuobjdump): {kernel: (total, [(loop size, opcodes seen), ...])}, a loop
+    being the instructions from a backward branch's target to the branch."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dump = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts = {}
+    for func in re.split(r"\n\s*Function : ", dump)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        short = re.search(r"(chain_cluster_kernel|gather_luma_kernel|"
+                          r"finish_kernel|shear_rotate_kernel)"
+                          r"(?:ILi(\d+)E)?", name)
+        if not short:
+            continue
+        ins = [(int(a, 16), op.strip()) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        loops = []
+        for at, op in ins:
+            m = re.search(r"\bBRA\s.*?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < at:
+                body = [o for a, o in ins if int(m.group(1), 16) <= a <= at]
+                loops.append((len(body), " ".join(body)))
+        label = short.group(1) + (f"<{short.group(2)}>" if short.group(2)
+                                  else "")
+        counts[label] = (len(ins), loops)
+    return counts
+
+
+def innermost(loops, opcode):
+    """Size of the smallest loop whose body holds ``opcode``."""
+    sizes = [n for n, body in loops if opcode in body]
+    if not sizes:
+        raise AssertionError(f"no loop holds {opcode}")
+    return min(sizes)
+
+
+def chain_bytes(S, B, C_in):
+    """Bytes the chain function must move for B images of crop S: each crop
+    pixel's C_in bytes read once, each RGBA pixel written once, the shift
+    vectors, the item rows and the enhance parameters."""
+    return B * (S * S * (C_in + 4) + 2 * 4 * S + 16 + 32)
+
+
+def rotate_bytes(S, B, C):
+    """Bytes of the batched rotation: each pixel read and written once, the
+    shift vectors and the D4 codes."""
+    return B * (2 * S * S * C + 2 * 4 * S + 4)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -149,6 +227,7 @@ def main() -> None:
     from image_processor_pipeline_tpu_torch.ops import augment, geometry
     from image_processor_pipeline_tpu_torch.ops import rotate
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -156,7 +235,8 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    print(f"device: {kind}; torch {torch.__version__}, "
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"device: {kind} ({sms} SMs); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     print(f"card (name, power limit): {card}")
 
@@ -168,31 +248,66 @@ def main() -> None:
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    sass = sass_counts(kernels.BUILD / "libipp_cuda.so")
+    for label, (total, loops) in sass.items():
+        print(f"  sass: {label}: {total} instructions, loops of "
+              f"{sorted((n for n, _ in loops), reverse=True)[:4]}")
+    for C in (3, 4):
+        _, loops = sass[f"chain_cluster_kernel<{C}>"]
+        stage = innermost(loops, "LDG.E.128")  # 16 pixels
+        finish = innermost(loops, "STG")       # 4 pixels
+        print(f"  sass per pixel, cluster kernel C={C}: staging and luma "
+              f"{stage} / 16 = {stage / 16:.1f}, gather and finish "
+              f"{finish} / 4 = {finish / 4:.1f}, in all "
+              f"{stage / 16 + finish / 4:.1f}; two-pass kernels (one pixel "
+              f"a thread, whole kernels): gather_luma "
+              f"{sass['gather_luma_kernel'][0]} + finish "
+              f"{sass['finish_kernel'][0]}")
+    for S in (64, 512):
+        for K in (8, 16):
+            print(f"max active clusters at S={S}, C=3, K={K}: "
+                  f"{augment.max_active_clusters(S, 3, K)}; chain_path "
+                  f"{augment.chain_path(S, K)}, "
+                  f"{augment.cluster_smem_bytes(S, K)} bytes of shared "
+                  f"memory a CTA")
 
     filt = (chains._FILTER_LOWERS, chains._FILTER_UPPERS,
             chains._FILTER_ZONES)
     max_err = dict.fromkeys(KERNELS, 0)
+    over = max(S for S in range(1, 2048)
+               if augment.chain_path(S) == "cluster") + 1
 
-    # ---- augment_full (K1) against its plain version ----------------------
-    for SIN, S, B, shift in ((640, 512, 16, 0), (96, 64, 8, 0),
-                             (96, 64, 8, -70)):
-        packed, y0, x0, angles, prms, flips = kernel_inputs(
-            SIN, S, B, seed=SIN, dev=dev)
+    # ---- augment_full (K1), both paths, three canvas forms ----------------
+    for SIN, S, B, shift in ((640, 512, 16, 0), (640, 512, 64, 0),
+                             (640, 512, 16, -70), (96, 64, 8, 0),
+                             (96, 64, 8, -70), (128, 97, 8, 0),
+                             (over + 41, over, 2, 0),
+                             (over + 41, over, 2, -70)):
+        u4, y0, x0, angles, prms, flips = kernel_inputs(
+            SIN, S, B, seed=SIN + S + B, dev=dev)
         # shift != 0 moves the crop offsets off the canvas: negative ones
         # count from the end, then all are clamped (lax.dynamic_slice)
         y0, x0 = y0 + shift, x0 - shift
-        got = augment.augment_fused_full(packed, y0, x0, angles, prms, flips,
-                                         *filt, crop=S)
+        shifts = augment._shifts(angles, S)
+        packed = u4.view(torch.int32)[..., 0]
+        u3 = u4[..., :3].contiguous()
         ref = augment.augment_full_reference(
-            packed, y0, x0, angles, prms, flips, *filt, crop=S,
-            shifts=augment._shifts(angles, S))
-        if got.shape != (B, S, S, 4):
-            raise AssertionError(f"augment_full: shape {tuple(got.shape)}")
-        max_err["augment_full"] = max(max_err["augment_full"], check_equal(
-            got, ref, f"kernel augment_full != plain at SIN={SIN} S={S}"))
-        print(f"kernel augment_full == plain, byte for byte: SIN={SIN} "
-              f"S={S} B={B}, offsets shifted by {shift}, every flip code, "
-              f"angles {ANGLES} + random")
+            packed, y0, x0, angles, prms, flips, *filt, crop=S, shifts=shifts)
+        path = augment.chain_path(S)
+        for form, canvas in (("packed", packed), ("u8 C=4", u4),
+                             ("u8 C=3", u3)):
+            kernels.reset_launch_counts()
+            got = augment.augment_fused_full(canvas, y0, x0, angles, prms,
+                                             flips, *filt, crop=S)
+            if kernels.launch_counts["augment_full"] != 1:
+                raise AssertionError("augment_full: not one wrapper launch")
+            max_err["augment_full"] = max(max_err["augment_full"], check_equal(
+                got, ref, f"kernel augment_full ({path}, {form}) != plain at "
+                f"SIN={SIN} S={S} B={B} shift={shift}"))
+        print(f"kernel augment_full == plain, byte for byte: SIN={SIN} S={S} "
+              f"B={B}, chain_path {path}, offsets shifted by {shift}, packed, "
+              f"u8 C=4 and u8 C=3 canvases, every flip code, angles "
+              f"{ANGLES} + random")
 
     # ---- shear_rotate (K2, K4) against its plain version ------------------
     for S, C, B in ((512, 4, 16), (512, 3, 16), (512, 1, 16), (64, 2, 16),
@@ -209,26 +324,25 @@ def main() -> None:
         print(f"kernel {name} == plain, byte for byte: S={S} C={C} B={B}, "
               f"every quad, angles {ANGLES} + random")
 
-    # ---- augment_fused (K3) against its plain version ---------------------
-    for S, B in ((512, 16), (64, 8)):
-        crops, angles, prms, flips = crop_inputs(S, 3, B, seed=S, dev=dev)
+    # ---- augment_fused (K3), both paths ------------------------------------
+    for S, B in ((512, 16), (512, 64), (64, 8), (97, 8), (over, 2)):
+        crops, angles, prms, flips = crop_inputs(S, 3, B, seed=S + B, dev=dev)
         got = augment.augment_fused(crops, angles, prms, *filt, flips=flips)
         ref = augment.augment_finish_reference(
             crops, angles, prms, *filt, flips=flips,
             shifts=augment._shifts(angles, S))
-        if got.shape != (B, S, S, 4):
-            raise AssertionError(f"augment_fused: shape {tuple(got.shape)}")
         max_err["augment_fused"] = max(max_err["augment_fused"], check_equal(
             got, ref, f"kernel augment_fused != plain at S={S} B={B}"))
         print(f"kernel augment_fused == plain, byte for byte: S={S} B={B}, "
-              f"every flip code, angles {ANGLES} + random")
+              f"chain_path {augment.chain_path(S)}, every flip code, angles "
+              f"{ANGLES} + random")
 
     # ---- main paths, each read on its own ---------------------------------
     # AugmentChain in each kernel mode at B=8 and 64, three calls each, and
     # the batched rotation op on single-channel masks, the op's path for
     # C not in {3, 4} (where the TPU package launches _shear_kernel)
     inputs = {batch: chains.AugmentChain(640, device=dev).example_inputs(batch)
-              for batch in (8, 64)}
+              for batch in BATCHES}
     launches = {}
     outputs = {}
     for mode, kernel in (("cuda_full", "augment_full"),
@@ -241,7 +355,7 @@ def main() -> None:
             for batch, (images, xywhn, seeds) in inputs.items()})
         launches[kernel] = counts[kernel]
     masks = {batch: crop_inputs(512, 1, batch, seed=batch, dev=dev)[:2]
-             for batch in (8, 64)}
+             for batch in BATCHES}
     rotated, counts = drive(kernels, {"shear_rotate": 6}, lambda: {
         batch: [rotate.rotate_square_shear_batch(m, a + 7.0 * i)
                 for i in range(3)]
@@ -284,7 +398,124 @@ def main() -> None:
     del outputs, rotated
     torch.cuda.synchronize()
 
-    # ---- timing -----------------------------------------------------------
+    # ---- each kernel's launch alone, at the main path's shapes ------------
+    # arguments made outside the timed window; K1 reads the 3-channel
+    # canvas, as the chain gives it
+    def launch_args(B):
+        images, xywhn, seeds = inputs[B]
+        u4, y0, x0, angles, prms, flips = kernel_inputs(640, 512, B, seed=B,
+                                                        dev=dev)
+        full = augment.chain_args(images, y0, x0, augment._shifts(angles, 512),
+                                  prms, flips, *filt, 512)
+        crops = images[:, :512, :512].contiguous()
+        fshifts = geometry.applied_shifts(*augment._shifts(angles, 512), 512)
+        zeros = torch.zeros_like(flips)
+        fused = augment.chain_args(crops, zeros, zeros, fshifts, prms, flips,
+                                   *filt, 512)
+        mask = crops[..., :1].contiguous()
+        codes = augment.d4_codes(dev)[fshifts[0] * 4]
+        rot = (codes, fshifts[1].contiguous(), fshifts[2].contiguous())
+        plain = {
+            "augment_full": lambda i: augment.augment_full_reference(
+                images, y0, x0, angles, prms, flips, *filt, crop=512,
+                shifts=full[2]),
+            "augment_fused": lambda i: augment.augment_finish_reference(
+                crops, angles, prms, *filt, flips=flips, shifts=fshifts),
+            "shear_rotate_packed": lambda i: geometry.rotate_square_shear_by(
+                crops, *fshifts),
+            "shear_rotate": lambda i: geometry.rotate_square_shear_by(
+                mask, *fshifts)}
+        launch = {
+            "augment_full": lambda **kw: augment.launch_chain(
+                "augment_full", *full, **kw),
+            "augment_fused": lambda **kw: augment.launch_chain(
+                "augment_fused", *fused, **kw),
+            "shear_rotate_packed": lambda: rotate.launch_shear(crops, *rot),
+            "shear_rotate": lambda: rotate.launch_shear(mask, *rot)}
+        bounds = {"augment_full": chain_bytes(512, B, 3),
+                  "augment_fused": chain_bytes(512, B, 3),
+                  "shear_rotate_packed": rotate_bytes(512, B, 3),
+                  "shear_rotate": rotate_bytes(512, B, 1)}
+        return launch, plain, bounds
+
+    dev_ms, plain_ms, bound_ms = {}, {}, {}
+    for B in BATCHES:
+        launch, plain, bounds = launch_args(B)
+        for name in KERNELS:
+            dev_ms[name, B] = device_ms(launch[name])
+            bound_ms[name, B] = bounds[name] / HBM_BYTES_PER_S * 1e3
+            plain_ms[name, B] = statistics.median(
+                time_calls(plain[name], calls=10, windows=3))
+            print(f"{name} B={B} S=512: kernel {dev_ms[name, B]:.4f} ms of "
+                  f"device time a launch (launch alone), bound "
+                  f"{bound_ms[name, B]:.4f} ms ({bounds[name]} bytes at "
+                  f"3.35 TB/s, share {bound_ms[name, B] / dev_ms[name, B]:.3f})"
+                  f", plain {plain_ms[name, B]:.4f} ms a call; card {card}")
+        # the chain kernel's paths and cluster sizes, in turns
+        for name in ("augment_full", "augment_fused"):
+            turns = []
+            for path, K in (("cluster", 8), ("two_pass", 0), ("cluster", 16),
+                            ("cluster", 16), ("two_pass", 0), ("cluster", 8)):
+                kw = {"path": path} | ({"cluster": K} if K else {})
+                turns.append((f"{path}" + (f" K={K}" if K else ""),
+                              device_ms(lambda: launch[name](**kw))))
+            print(f"{name} B={B} S=512 in turns (device ms a launch): "
+                  + ", ".join(f"{p} {t:.4f}" for p, t in turns)
+                  + f"; default K={augment.CLUSTER}; card {card}")
+            best = {p: min(t for q, t in turns if q == p) for p, _ in turns}
+            if B == 64 and min(best["cluster K=8"], best["cluster K=16"]) \
+                    >= best["two_pass"]:
+                raise AssertionError(f"{name} B=64: the cluster path is not "
+                                     f"faster than the two-pass path")
+
+    # ---- one launch, no memset; the chain's device work --------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(fn, calls):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return events, wall
+
+    launch, _, _ = launch_args(64)
+    for name in ("augment_full", "augment_fused"):
+        events, _ = device_events(launch[name], 1)
+        names = [e.name for e in events]
+        n_kernels = sum("chain_cluster_kernel" in n for n in names)
+        n_memset = sum("emset" in n for n in names)
+        print(f"profiler, one {name} launch at B=64 S=512: device events "
+              f"{names}")
+        if n_kernels != 1 or n_memset != 0 or len(names) != 1:
+            raise AssertionError(f"{name}: not one kernel launch and no "
+                                 f"memset: {names}")
+    for B in BATCHES:
+        images, xywhn, seeds = inputs[B]
+        for mode in ("cuda_full", "cuda_fused"):
+            events, wall = device_events(lambda: chains.augment_chain(
+                images, xywhn, seeds, rotation=mode), 10)
+            busy = sum(e.time_range.elapsed_us() for e in events) / 1e4
+            parts = {}
+            for e in events:
+                parts[e.name[:40]] = (parts.get(e.name[:40], 0)
+                                      + e.time_range.elapsed_us() / 1e4)
+            top = sorted(parts.items(), key=lambda kv: -kv[1])[:4]
+            cat = sum(ms for n, ms in parts.items() if "Cat" in n)
+            print(f"profiler, chain {mode} B={B} (10 calls): wall "
+                  f"{wall:.4f} ms a call, device busy {busy:.4f} ms, idle "
+                  f"share {1 - busy / wall:.4f}; largest "
+                  + ", ".join(f"{n} {ms:.4f}" for n, ms in top)
+                  + f"; cat kernels {cat:.4f} ms; card {card}")
+            if mode == "cuda_full" and B == 64 and cat > 0.05:
+                raise AssertionError("cuda_full still copies the canvas")
+
+    # ---- chains, wall time a call ------------------------------------------
     def summary(per_call, batch):
         med = statistics.median(per_call)
         return (f"median {med:.4f} ms/call ({batch / med * 1e3:.1f} img/s), "
@@ -294,35 +525,9 @@ def main() -> None:
         for mode in ("cuda_full", "full_reference", "cuda_shear", "shear",
                      "cuda_fused", "fused_reference"):
             per_call = time_calls(lambda i: chains.augment_chain(
-                images, xywhn, seeds + i * batch, rotation=mode))
+                images, xywhn, seeds + i * batch, rotation=mode), calls=20)
             print(f"chain {mode} B={batch} 640->512: "
                   f"{summary(per_call, batch)}; card {card}")
-    kernel_ms = {}
-    for B in (8, 64):
-        args = kernel_inputs(640, 512, B, seed=B, dev=dev)
-        crops, angles, prms, flips = crop_inputs(512, 3, B, seed=B, dev=dev)
-        mask = crop_inputs(512, 1, B, seed=B, dev=dev)[0]
-        for name, kernel, plain in (
-                ("augment_full",
-                 lambda i: augment.augment_fused_full(*args, *filt, crop=512),
-                 lambda i: augment.augment_full_reference(*args, *filt,
-                                                          crop=512)),
-                ("shear_rotate_packed",
-                 lambda i: rotate.rotate_square_shear_batch(crops, angles),
-                 lambda i: geometry.rotate_square_shear(crops, angles)),
-                ("shear_rotate",
-                 lambda i: rotate.rotate_square_shear_batch(mask, angles),
-                 lambda i: geometry.rotate_square_shear(mask, angles)),
-                ("augment_fused",
-                 lambda i: augment.augment_fused(crops, angles, prms, *filt,
-                                                 flips=flips),
-                 lambda i: augment.augment_finish_reference(
-                     crops, angles, prms, *filt, flips=flips))):
-            for which, fn in (("kernel", kernel), ("plain", plain)):
-                per_call = time_calls(fn)
-                kernel_ms[name, B, which] = statistics.median(per_call)
-                print(f"{name} {which} B={B} S=512: "
-                      f"{summary(per_call, B)}; card {card}")
     torch.cuda.synchronize()
 
     # ---- F6: the card's tan/sin against the CPU's in shear_params ----------
@@ -334,12 +539,17 @@ def main() -> None:
           f"shift difference {f6['max_step']} "
           f"({time.perf_counter() - t0:.1f} s)")
 
+    print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": max_err[name],
-        "ms": kernel_ms[name, 8, "kernel"],
-        "plain_ms": kernel_ms[name, 8, "plain"],
+        "ms": dev_ms[name, 64], "plain_ms": plain_ms[name, 64],
+        "bound_ms": bound_ms[name, 64], "bound_by": "bytes",
+        "library_ms": None, "batch": 64, "crop": 512,
+        "device_ms": {f"B={B}": dev_ms[name, B] for B in BATCHES},
+        "bound_ms_by_batch": {f"B={B}": bound_ms[name, B] for B in BATCHES},
+        "plain_ms_by_batch": {f"B={B}": plain_ms[name, B] for B in BATCHES},
     } for name, (source, replaces) in KERNELS.items()]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -18,23 +18,38 @@
 
 namespace ipp {
 
+// Sets (y1, x1), the pixel before the three shears that output pixel
+// (y, x) shows, and returns true; returns false (y1 = x1 = 0) where the
+// output pixel is 0.  The forward map, x2 = x1 + sh1[y1], y = y1 + sh2[x2],
+// x = x2 + sh1[y], every step in [0, S), is its exact inverse.
+__device__ __forceinline__ bool shear_back(
+    const int32_t* __restrict__ sh1, const int32_t* __restrict__ sh2,
+    int y, int x, int S, int& y1, int& x1) {
+  // branch-free: a step that leaves [0, S) reads entry 0 and misses
+  const int x2 = x - sh1[y];
+  const bool in2 = (unsigned)x2 < (unsigned)S;
+  const int yy = y - sh2[in2 ? x2 : 0];
+  const bool in1 = in2 && (unsigned)yy < (unsigned)S;
+  const int xx = x2 - sh1[in1 ? yy : 0];
+  const bool hit = in1 && (unsigned)xx < (unsigned)S;
+  y1 = hit ? yy : 0;
+  x1 = hit ? xx : 0;
+  return hit;
+}
+
 // Sets (row, col), the input pixel that output pixel (y, x) shows, and
 // returns true; returns false (row = col = 0) where the output pixel is 0.
 __device__ __forceinline__ bool shear_source(
     const int32_t* __restrict__ sh1, const int32_t* __restrict__ sh2,
     int d4, int y, int x, int S, int& row, int& col) {
-  row = col = 0;
-  const int x2 = x - sh1[y];
-  if (x2 < 0 || x2 >= S) return false;
-  const int y1 = y - sh2[x2];
-  if (y1 < 0 || y1 >= S) return false;
-  const int x1 = x2 - sh1[y1];
-  if (x1 < 0 || x1 >= S) return false;
+  int y1, x1;
+  const bool hit = shear_back(sh1, sh2, y, x, S, y1, x1);
   const int a = (d4 & 2) ? S - 1 - y1 : y1;
   const int c = (d4 & 1) ? S - 1 - x1 : x1;
   row = (d4 & 4) ? c : a;
   col = (d4 & 4) ? a : c;
-  return true;
+  if (!hit) row = col = 0;
+  return hit;
 }
 
 }  // namespace ipp

@@ -119,10 +119,11 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(_build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.ipp_augment_full.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-            lib.ipp_augment_fused.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+            lib.ipp_augment_full.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+            lib.ipp_augment_max_active_clusters.argtypes = [i32] * 3 + [ptr]
             lib.ipp_shear_rotate.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
-            for fn in (lib.ipp_augment_full, lib.ipp_augment_fused,
+            for fn in (lib.ipp_augment_full,
+                       lib.ipp_augment_max_active_clusters,
                        lib.ipp_shear_rotate):
                 fn.restype = i32
             lib.ipp_cuda_error_string.argtypes = [i32]

@@ -11,8 +11,8 @@ batch; the pixels stay on the device.  Modes, each with the counterpart
 in the JAX package whose output it equals:
 
   'cuda_full'       crop → flip → rotate → mask → enhance in one
-                    hand-written CUDA kernel pair ('pallas_full'); the plain
-                    twin on a CPU tensor;
+                    hand-written CUDA kernel launch reading the uint8
+                    canvas ('pallas_full'); the plain twin on a CPU tensor;
   'full_reference'  the plain torch twin of that kernel ('full_reference');
   'shear'           crop → rotate_square_shear → flip → mask → enhance in
                     torch ops, the XLA 'shear' mode;
@@ -20,7 +20,7 @@ in the JAX package whose output it equals:
                     CUDA shear kernel ('pallas'); the plain twin on a CPU
                     tensor;
   'cuda_fused'      crop, then flip → rotate → mask → enhance in one
-                    hand-written CUDA kernel pair ('pallas_fused'); the
+                    hand-written CUDA kernel launch ('pallas_fused'); the
                     plain twin on a CPU tensor;
   'fused_reference' the plain torch twin of that kernel ('fused_reference').
 
@@ -136,11 +136,16 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
     flips, prms = _flip_and_params(seeds)
     y0, x0, angles, flips, prms = (torch.as_tensor(a, device=dev)
                                    for a in (y0, x0, angles, flips, prms))
-    if rotation in ("cuda_full", "full_reference"):
-        fn = augment_fused_full if rotation == "cuda_full" \
-            else augment_full_reference
-        return fn(pack_rgba(images), y0, x0, angles, prms, flips,
-                  _FILTER_LOWERS, _FILTER_UPPERS, _FILTER_ZONES, crop=crop)
+    if rotation == "cuda_full":
+        # the kernel reads the uint8 canvas itself: no packing pass
+        return augment_fused_full(images.contiguous(), y0, x0, angles, prms,
+                                  flips, _FILTER_LOWERS, _FILTER_UPPERS,
+                                  _FILTER_ZONES, crop=crop)
+    if rotation == "full_reference":
+        return augment_full_reference(pack_rgba(images), y0, x0, angles,
+                                      prms, flips, _FILTER_LOWERS,
+                                      _FILTER_UPPERS, _FILTER_ZONES,
+                                      crop=crop)
     cropped = _crop_one(images[..., :3], y0, x0, crop).contiguous()
     if rotation in ("cuda_fused", "fused_reference"):
         fn = augment_fused if rotation == "cuda_fused" \

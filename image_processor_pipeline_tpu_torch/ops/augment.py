@@ -2,19 +2,24 @@
 (port of image_processor_pipeline_tpu/ops/pallas/augment.py:153-272,
 435-496, 498-747).
 
-``augment_fused_full`` has the contract of ``augment_fused_pallas_full``:
-packed RGBA canvases in, ``[B, S, S, 4]`` uint8 RGBA out, byte-identical to
-``augment_full_reference``.  ``augment_fused`` has the contract of
-``augment_fused_pallas``: RGB crops in, RGBA out, byte-identical to
-``augment_finish_reference``.  On a CPU tensor each runs its plain version;
-on a CUDA tensor it launches its hand-written kernel in
+``augment_fused_full`` has the contract of ``augment_fused_pallas_full``
+widened to the uint8 canvas: packed RGBA canvases (the JAX contract) or
+uint8 ``[B, SIN, SIN, 3|4]`` canvases in, ``[B, S, S, 4]`` uint8 RGBA out,
+byte-identical to ``augment_full_reference``.  ``augment_fused`` has the
+contract of ``augment_fused_pallas``: RGB crops in, RGBA out,
+byte-identical to ``augment_finish_reference``.  On a CPU tensor each runs
+its plain version; on a CUDA tensor it launches the hand-written kernel in
 ``csrc/augment_full.cu`` (replacing the TPU kernels ``_augment_full_kernel``
-and ``_augment_kernel``) or raises.  Kernel and plain version get the same
-shift vectors, computed once in the wrapper.
+and ``_augment_kernel``) or raises.  ``chain_path`` picks, from the crop
+size alone, which of that source's two launchers runs: one launch on a
+thread-block cluster per image, or two passes for crops too large to stage
+on chip.  Kernel and plain version get the same shift vectors, computed
+once in the wrapper.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -140,12 +145,59 @@ def _crop(images, y0, x0, crop: int):
                   rows, cols]
 
 
-def augment_full_reference(packed, y0, x0, angles, enh_params, flips,
+# CTAs in one image's thread-block cluster on the cluster path: 16, the
+# largest Hopper allows (non-portable), measured against 8 on the H100 at
+# B=8 and B=64 (PERF.md): two of its smaller CTAs share an SM.
+CLUSTER = 16
+# shared memory a block may use on sm_90, and the cluster kernel's fixed
+# part: csrc/augment_full.cu kSmemLimit and kFixedSmem
+SMEM_LIMIT = 232448
+_FIXED_SMEM = 16 + 128 + 2048 + 2048
+
+
+def cluster_smem_bytes(S: int, cluster: int = CLUSTER) -> int:
+    """Shared memory of one CTA of the cluster kernel at crop size S: the
+    fixed part, sh1, sh2, the row addresses and the zone masks, and
+    ceil(S/cluster) staged crop lines at 4 bytes a pixel, S + 1 words apart
+    (csrc/augment_full.cu:cluster_smem_bytes)."""
+    band = -(-S // cluster)
+    return _FIXED_SMEM + ((14 * S + 15) & ~15) + 4 * band * (S + 1)
+
+
+def chain_path(S: int, cluster: int = CLUSTER) -> str:
+    """The launcher of csrc/augment_full.cu for crop size S: "cluster" (one
+    launch, the crop staged across the cluster's shared memory) where a
+    CTA's share fits in a block's shared memory, else "two_pass"."""
+    return ("cluster" if cluster_smem_bytes(S, cluster) <= SMEM_LIMIT
+            else "two_pass")
+
+
+def canvas_u8(canvas):
+    """The canvas as uint8 [B, SIN, SIN, C], C in {3, 4}, with no copy: a
+    packed int32 [B, SIN, SIN] canvas (pack_rgba, the JAX contract) is its
+    C = 4 form reinterpreted.  Raises ValueError on any other form or on a
+    canvas that is not contiguous."""
+    if not isinstance(canvas, torch.Tensor):
+        raise ValueError("canvas must be a torch.Tensor")
+    if not canvas.is_contiguous():
+        raise ValueError("canvas must be contiguous")
+    square = canvas.ndim >= 3 and canvas.shape[1] == canvas.shape[2]
+    if canvas.dtype == torch.int32 and canvas.ndim == 3 and square:
+        return canvas.view(torch.uint8).view(*canvas.shape, 4)
+    if canvas.dtype == torch.uint8 and canvas.ndim == 4 and square \
+            and canvas.shape[3] in (3, 4):
+        return canvas
+    raise ValueError("canvas must be packed int32 [B, SIN, SIN] or uint8 "
+                     "[B, SIN, SIN, 3|4]")
+
+
+def augment_full_reference(canvas, y0, x0, angles, enh_params, flips,
                            lowers, uppers, zones, crop: int = 512,
                            shifts=None):
     """Plain twin of the whole chain: crop → user flip →
-    rotate_square_shear → mask → enhance.  packed: [B, SIN, SIN] int32."""
-    rgb = packed.contiguous()[..., None].view(torch.uint8)[..., :3]
+    rotate_square_shear → mask → enhance.  canvas: packed int32
+    [B, SIN, SIN] or uint8 [B, SIN, SIN, 3|4] (alpha ignored)."""
+    rgb = canvas_u8(canvas.contiguous())[..., :3]
     cropped = _crop(rgb, y0, x0, crop)
     return augment_finish_reference(cropped, angles, enh_params, lowers,
                                     uppers, zones, flips=flips,
@@ -162,32 +214,62 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is on {t.device}, the images on {device}")
 
 
-def _launch_chain(entry, src, items, shifts, enh_params, lowers, uppers,
-                  zones, B, S, *sizes):
-    """Launch one of the chain kernels (``entry`` with the C signature of
-    csrc/augment_full.cu) on ``src``'s device; returns [B, S, S, 4] uint8."""
-    dev = src.device
-    quad, sh1, sh2 = (t.contiguous() for t in shifts)
-    params = enh_params.contiguous()
+def chain_args(canvas, y0, x0, shifts, enh_params, flips, lowers, uppers,
+               zones, S: int):
+    """launch_chain's arguments after its name, for a uint8 canvas
+    [B, SIN, SIN, 3|4] on the card: the canvas, one 16-byte item row per
+    image (y0, x0, D4 code of quarter turn and flip, unused), the shift
+    vectors, the enhance parameters, the host filter rows and S."""
+    codes = d4_codes(canvas.device)[shifts[0] * 4 + flips.clamp(0, 3)]
+    items = torch.stack([y0, x0, codes, torch.zeros_like(codes)], dim=1)
     filt = torch.cat(filter_stack(lowers, uppers, zones), dim=1).contiguous()
+    return canvas, items, shifts, enh_params.contiguous(), filt, S
+
+
+def launch_chain(name, canvas, items, shifts, params, filt, S, path=None,
+                 cluster: int = CLUSTER):
+    """Launch csrc/augment_full.cu's ipp_augment_full on the canvas's
+    device by the launcher ``path`` names (default chain_path(S)), with
+    ``cluster`` CTAs an image on the cluster path, and count the launch
+    under ``name``.  Returns [B, S, S, 4] uint8."""
+    dev = canvas.device
+    B, SIN, _, C = canvas.shape
+    path = chain_path(S) if path is None else path
+    if path not in ("cluster", "two_pass"):
+        raise ValueError(f"unknown chain path {path!r}")
+    _, sh1, sh2 = (t.contiguous() for t in shifts)
     out = torch.empty((B, S, S), dtype=torch.int32, device=dev)
-    lum_sums = torch.empty(B, dtype=torch.int64, device=dev)
+    # the two-pass path's 64-bit luma sums; the cluster path needs none
+    lum_sums = (torch.empty(B, dtype=torch.int64, device=dev)
+                if path == "two_pass" else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = entry(
-            src.data_ptr(), out.data_ptr(), lum_sums.data_ptr(),
+        code = kernels.library().ipp_augment_full(
+            canvas.data_ptr(), out.data_ptr(),
+            None if lum_sums is None else lum_sums.data_ptr(),
             items.data_ptr(), sh1.data_ptr(), sh2.data_ptr(),
-            params.data_ptr(), filt.data_ptr(), filt.shape[0], B, *sizes, S,
-            stream)
+            params.data_ptr(), filt.data_ptr(), filt.shape[0], B, SIN, C, S,
+            cluster if path == "cluster" else 0, stream)
     kernels.check(code)
+    kernels.launch_counts[name] += 1
     return out.view(torch.uint8).view(B, S, S, 4)
 
 
-def augment_fused_full(packed, y0, x0, angles, enh_params, flips, lowers,
+def max_active_clusters(S: int, C: int = 3, cluster: int = CLUSTER) -> int:
+    """cudaOccupancyMaxActiveClusters of the cluster kernel at crop size S
+    on the current card: how many images it can work on at once."""
+    n = ctypes.c_int(0)
+    kernels.check(kernels.library().ipp_augment_max_active_clusters(
+        C, S, cluster, ctypes.byref(n)))
+    return n.value
+
+
+def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
                        uppers, zones, crop: int = 512):
     """The whole chain for a batch: crop → flip → rotate → mask → enhance.
 
-    packed: [B, SIN, SIN] int32 packed RGBA (see pack_rgba), contiguous;
+    canvas: packed int32 [B, SIN, SIN] RGBA (see pack_rgba) or uint8
+    [B, SIN, SIN, C] with C in {3, 4} (alpha ignored), contiguous;
     y0/x0: [B] int32 crop offsets; angles: [B] float32 degrees;
     enh_params: [B, 8] float32 (brightness, contrast, color, gain r/g/b);
     flips: [B] int32 user flip codes (0=o, 1=h, 2=v, 3=hv);
@@ -195,12 +277,8 @@ def augment_fused_full(packed, y0, x0, angles, enh_params, flips, lowers,
     Returns [B, S, S, 4] uint8.  CPU tensors run augment_full_reference;
     CUDA tensors launch the kernel (no fallback); other devices raise.
     """
-    if not isinstance(packed, torch.Tensor) or packed.dtype != torch.int32 \
-            or packed.ndim != 3 or packed.shape[1] != packed.shape[2]:
-        raise ValueError("packed must be an int32 [B, SIN, SIN] tensor")
-    if not packed.is_contiguous():
-        raise ValueError("packed must be contiguous")
-    B, SIN, S, dev = packed.shape[0], packed.shape[1], crop, packed.device
+    src = canvas_u8(canvas)
+    B, SIN, S, dev = src.shape[0], src.shape[1], crop, src.device
     if not 1 <= S <= SIN:
         raise ValueError(f"crop {S} must lie in [1, {SIN}]")
     for name, t, dtype, shape in (
@@ -211,19 +289,13 @@ def augment_fused_full(packed, y0, x0, angles, enh_params, flips, lowers,
         _check(name, t, dtype, shape, dev)
     shifts = _shifts(angles, S)
     if dev.type == "cpu":
-        return augment_full_reference(packed, y0, x0, angles, enh_params,
+        return augment_full_reference(src, y0, x0, angles, enh_params,
                                       flips, lowers, uppers, zones, crop=S,
                                       shifts=shifts)
     if dev.type != "cuda":
         raise ValueError(f"augment_fused_full runs on cpu or cuda, not {dev}")
-    codes = d4_codes(dev)[
-        shifts[0] * 4 + flips.clamp(0, 3)]
-    # one 16-byte row per image: (y0, x0, D4 code, unused)
-    items = torch.stack([y0, x0, codes, torch.zeros_like(codes)], dim=1)
-    out = _launch_chain(kernels.library().ipp_augment_full, packed, items,
-                        shifts, enh_params, lowers, uppers, zones, B, S, SIN)
-    kernels.launch_counts["augment_full"] += 1
-    return out
+    return launch_chain("augment_full", *chain_args(
+        src, y0, x0, shifts, enh_params, flips, lowers, uppers, zones, S))
 
 
 def augment_fused(images, angles, enh_params, lowers, uppers, zones,
@@ -236,8 +308,8 @@ def augment_fused(images, angles, enh_params, lowers, uppers, zones,
     by default; shifts: (quad [B], sh1 [B, S], sh2 [B, S]) int32 to use
     instead of computing them from ``angles``; lowers/uppers/zones: the
     static filter stack.  Returns [B, S, S, 4] uint8 RGBA.  CPU tensors run
-    augment_finish_reference; CUDA tensors launch the kernel (no fallback);
-    other devices raise.
+    augment_finish_reference; CUDA tensors launch the kernel, the whole
+    chain's with the crops as canvases (no fallback); other devices raise.
     """
     if not isinstance(images, torch.Tensor) or images.dtype != torch.uint8 \
             or images.ndim != 4 or images.shape[1] != images.shape[2] \
@@ -264,13 +336,7 @@ def augment_fused(images, angles, enh_params, lowers, uppers, zones,
                                         shifts=shifts)
     if dev.type != "cuda":
         raise ValueError(f"augment_fused runs on cpu or cuda, not {dev}")
-    shifts = geometry.applied_shifts(*shifts, S)
-    codes = d4_codes(dev)[
-        shifts[0] * 4 + flips.clamp(0, 3)]
-    zeros = torch.zeros_like(codes)
-    # one 16-byte row per image: (0, 0, D4 code, unused), no crop offsets
-    items = torch.stack([zeros, zeros, codes, zeros], dim=1)
-    out = _launch_chain(kernels.library().ipp_augment_fused, images, items,
-                        shifts, enh_params, lowers, uppers, zones, B, S)
-    kernels.launch_counts["augment_fused"] += 1
-    return out
+    zeros = torch.zeros_like(flips)
+    return launch_chain("augment_fused", *chain_args(
+        images, zeros, zeros, geometry.applied_shifts(*shifts, S),
+        enh_params, flips, lowers, uppers, zones, S))

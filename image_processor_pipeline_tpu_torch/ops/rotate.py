@@ -44,7 +44,16 @@ def shear_rotate(images, quad, sh1, sh2):
         raise ValueError(f"shear_rotate runs on cpu or cuda, not {dev}")
     quad, sh1, sh2 = (t.contiguous() for t in
                       geometry.applied_shifts(quad, sh1, sh2, S))
-    codes = d4_codes(dev)[quad * 4]
+    return launch_shear(images, d4_codes(dev)[quad * 4], sh1, sh2)
+
+
+def launch_shear(images, codes, sh1, sh2):
+    """Launch csrc/shear_rotate.cu's ipp_shear_rotate on ``images``' card:
+    codes [B] int32, the D4 code of each quarter turn; sh1, sh2 [B, S]
+    int32 as applied (geometry.applied_shifts), all contiguous.  Counts the
+    launch and returns the rotated [B, S, S, C] uint8."""
+    B, S, _, C = images.shape
+    dev = images.device
     out = torch.empty_like(images)
     lib = kernels.library()
     with torch.cuda.device(dev):

@@ -6,6 +6,8 @@ against its Pallas kernel in interpret mode; the wrappers' CPU paths,
 checks and counters.  The kernels themselves are held against the plain
 twins on the card in test_torch_cuda.py."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -110,8 +112,67 @@ def test_wrapper_on_cpu_takes_plain_path(batch8):
     assert torch.equal(got, plain)
 
 
+@pytest.mark.parametrize("channels", [3, 4])
+def test_wrapper_takes_u8_canvas_like_packed(batch8, channels):
+    """The uint8 canvas with 3 or 4 channels gives the packed canvas's bytes
+    and JAX's eager augment_full_reference's, with every flip code and the
+    boundary angles (JAX's shift vectors on the plain twin, F1)."""
+    data, want, S = batch8
+    args = port_args(*data)
+    u8 = args[0].view(torch.uint8).view(*args[0].shape, 4)
+    if channels == 3:
+        u8 = u8[..., :3].contiguous()
+    kernels.reset_launch_counts()
+    got = taug.augment_fused_full(u8, *args[1:], LOWERS, UPPERS, ZONES,
+                                  crop=S)
+    assert kernels.launch_counts["augment_full"] == 0
+    assert torch.equal(got, taug.augment_fused_full(
+        *args, LOWERS, UPPERS, ZONES, crop=S))
+    plain = taug.augment_full_reference(u8, *args[1:], LOWERS, UPPERS, ZONES,
+                                        crop=S, shifts=jax_shifts(data[3], S))
+    np.testing.assert_array_equal(plain.numpy(), want)
+
+
+def test_canvas_u8_reinterprets_packed_without_copy():
+    packed, *_ = port_args(*make_batch(2, 24, 16, seed=5))
+    u8 = taug.canvas_u8(packed)
+    assert u8.shape == (2, 24, 24, 4) and u8.dtype == torch.uint8
+    assert u8.data_ptr() == packed.data_ptr()
+    np.testing.assert_array_equal(u8[..., 3].numpy(), 255)
+    rgb = u8[..., :3].contiguous()
+    assert taug.canvas_u8(rgb) is rgb
+
+
+def test_chain_path_pinned():
+    """The cluster path stages an image's crop across the shared memory of
+    its cluster's CTAs, which bounds S; larger crops take two passes."""
+    assert taug.CLUSTER == 16
+    for S in (64, 97, 512, 926):
+        assert taug.chain_path(S) == "cluster"
+    for S in (927, 1024):
+        assert taug.chain_path(S) == "two_pass"
+    assert taug.cluster_smem_bytes(512) == 4240 + 14 * 512 + 4 * 32 * 513
+    assert taug.cluster_smem_bytes(926) <= taug.SMEM_LIMIT \
+        < taug.cluster_smem_bytes(927)
+    assert taug.chain_path(658, 8) == "cluster"
+    assert taug.chain_path(659, 8) == "two_pass"
+
+
+def test_smem_layout_mirrors_the_kernel_source():
+    """chain_path's arithmetic is the kernel's own (kSmemLimit, kFixedSmem,
+    cluster_smem_bytes in csrc/augment_full.cu)."""
+    src = (kernels.CSRC / "augment_full.cu").read_text()
+    assert f"kSmemLimit = {taug.SMEM_LIMIT};" in src
+    fixed = re.search(r"kFixedSmem = ([0-9+ ]+);", src).group(1)
+    assert eval(fixed) == taug._FIXED_SMEM
+    assert ("kFixedSmem + ((14 * S + 15) & ~15) + 4 * band * (S + 1)"
+            in src)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "crop", "device",
-                                 "contiguous", "param_dtype", "param_shape"])
+                                 "contiguous", "param_dtype", "param_shape",
+                                 "u8_channels", "u8_contiguous", "u8_square",
+                                 "u8_rank"])
 def test_wrapper_rejects_bad_inputs(bad):
     packed, y0, x0, angles, prms, flips = port_args(
         *make_batch(2, 24, 16, seed=2))
@@ -128,8 +189,18 @@ def test_wrapper_rejects_bad_inputs(bad):
         packed = packed.transpose(1, 2)
     elif bad == "param_dtype":
         angles = angles.double()
-    else:
+    elif bad == "param_shape":
         prms = prms[:, :6]
+    else:
+        u8 = packed.view(torch.uint8).view(2, 24, 24, 4)
+        if bad == "u8_channels":
+            packed = u8[..., :2].contiguous()
+        elif bad == "u8_contiguous":
+            packed = u8[..., :3]
+        elif bad == "u8_square":
+            packed = u8[:, :, :20].contiguous()
+        else:
+            packed = u8[..., 0].contiguous()
     with pytest.raises(ValueError):
         taug.augment_fused_full(packed, y0, x0, angles, prms, flips,
                                 LOWERS, UPPERS, ZONES, crop=crop)

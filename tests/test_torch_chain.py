@@ -98,6 +98,27 @@ def test_cuda_fused_equals_cuda_full_on_cpu():
     assert not torch.equal(shear, fused)
 
 
+def test_cuda_full_reads_the_canvas_without_packing(monkeypatch):
+    """'cuda_full' hands the uint8 canvas to its wrapper as it is (no
+    pack_rgba pass) and still equals JAX's full_reference except for F1
+    items; 'full_reference' keeps the JAX contract's packed canvas."""
+    images, xywhn, seeds = chain_inputs(4, 96, seed=13)
+    want = np.asarray(jchains.augment_chain(
+        jnp.asarray(images), jnp.asarray(xywhn), jnp.asarray(seeds), 64,
+        "full_reference"))
+    packed = []
+    real = tchains.pack_rgba
+    monkeypatch.setattr(tchains, "pack_rgba",
+                        lambda x: packed.append(x.shape) or real(x))
+    got = tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                                "cuda_full")
+    assert packed == []
+    assert_chain_equal(got.numpy(), want, f1_items(images, xywhn, seeds, 64))
+    ref = tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                                "full_reference")
+    assert len(packed) == 1 and torch.equal(got, ref)
+
+
 def test_augment_chain_module_matches_jax_640():
     chain = tchains.AugmentChain(input_size=640, rotation="full_reference",
                                  device="cpu")

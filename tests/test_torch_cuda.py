@@ -44,23 +44,59 @@ def kernel_args(B, SIN, S, shift, dev):
     return packed, y0, x0, angles, prms, flips
 
 
+def canvas_form(packed, form):
+    """The packed canvas as itself or as a uint8 canvas of 4 or 3 channels."""
+    if form == "packed":
+        return packed
+    u8 = packed.view(torch.uint8).view(*packed.shape, 4)
+    return u8 if form == "u8_4" else u8[..., :3].contiguous()
+
+
+# the smallest crop above the cluster path's shared-memory limit
+TWO_PASS_S = 927
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("SIN,S,B,shift", [(96, 64, 8, 0), (640, 512, 4, 0),
-                                           (96, 64, 8, -70), (96, 64, 8, 50)])
-def test_kernel_matches_plain_on_card(cuda_device, SIN, S, B, shift):
-    args = kernel_args(B, SIN, S, shift, cuda_device)
+@pytest.mark.parametrize("form", ["packed", "u8_4", "u8_3"])
+@pytest.mark.parametrize("SIN,S,B,shift", [
+    (96, 64, 8, 0), (640, 512, 4, 0), (96, 64, 8, -70), (96, 64, 8, 50),
+    (128, 97, 8, 0), (TWO_PASS_S + 41, TWO_PASS_S, 2, 0)])
+def test_kernel_matches_plain_on_card(cuda_device, SIN, S, B, shift, form):
+    """Both paths (chain_path: cluster up to the limit, two passes above),
+    for the packed canvas and the uint8 canvases of 4 and 3 channels."""
+    packed, *draws = kernel_args(B, SIN, S, shift, cuda_device)
     kernels.reset_launch_counts()
-    got = augment.augment_fused_full(*args, *FILTERS, crop=S)
+    got = augment.augment_fused_full(canvas_form(packed, form), *draws,
+                                     *FILTERS, crop=S)
     assert kernels.launch_counts["augment_full"] == 1
-    want = augment.augment_full_reference(*args, *FILTERS, crop=S)
+    want = augment.augment_full_reference(packed, *draws, *FILTERS, crop=S)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
-def test_chain_through_kernel_on_card(cuda_device):
+@pytest.mark.parametrize("path,cluster", [("cluster", 8), ("cluster", 16),
+                                          ("two_pass", None)])
+def test_each_path_and_cluster_size_on_card(cuda_device, path, cluster):
+    packed, y0, x0, angles, prms, flips = kernel_args(8, 640, 512, 0,
+                                                      cuda_device)
+    u8 = canvas_form(packed, "u8_3")
+    shifts = augment._shifts(angles, 512)
+    args = augment.chain_args(u8, y0, x0, shifts, prms, flips, *FILTERS, 512)
+    got = augment.launch_chain("augment_full", *args, path=path,
+                               cluster=cluster)
+    want = augment.augment_full_reference(packed, y0, x0, angles, prms,
+                                          flips, *FILTERS, crop=512,
+                                          shifts=shifts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4, 8])
+def test_chain_through_kernel_on_card(cuda_device, batch):
     chain = chains.AugmentChain(input_size=640, device=cuda_device)
-    images, xywhn, seeds = chain.example_inputs(batch=4)
+    images, xywhn, seeds = chain.example_inputs(batch=batch)
     kernels.reset_launch_counts()
     got = chain(images, xywhn, seeds)
     assert kernels.launch_counts["augment_full"] == 1
@@ -97,7 +133,8 @@ def test_shear_rotate_matches_plain_on_card(cuda_device, S, C, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,B", [(64, 8), (512, 4)])
+@pytest.mark.parametrize("S,B", [(64, 8), (512, 4), (97, 8),
+                                 (TWO_PASS_S, 2)])
 def test_augment_fused_matches_plain_on_card(cuda_device, S, B):
     packed, _, _, angles, prms, flips = kernel_args(B, S, S, 0, cuda_device)
     crops = packed[..., None].view(torch.uint8)[..., :3].contiguous()
@@ -111,14 +148,15 @@ def test_augment_fused_matches_plain_on_card(cuda_device, S, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4, 8])
 @pytest.mark.parametrize("mode,twin,kernel", [
     ("cuda_shear", "shear", "shear_rotate_packed"),
     ("cuda_fused", "cuda_full", "augment_fused")])
 def test_chain_modes_through_kernels_on_card(cuda_device, mode, twin,
-                                             kernel):
+                                             kernel, batch):
     chain = chains.AugmentChain(input_size=640, rotation=mode,
                                 device=cuda_device)
-    images, xywhn, seeds = chain.example_inputs(batch=4)
+    images, xywhn, seeds = chain.example_inputs(batch=batch)
     kernels.reset_launch_counts()
     got = chain(images, xywhn, seeds)
     assert kernels.launch_counts[kernel] == 1
