@@ -6,13 +6,18 @@ CUDA card.  Run from the repository root:
 It builds the hand-written CUDA kernels from csrc/ and prints what ptxas
 and cuobjdump say of them, holds each byte for byte against its plain
 PyTorch version on the card (the chain kernel on both of its paths, for
-packed, 3- and 4-channel canvases), drives the flagship chain
+packed, 3- and 4-channel canvases; the rotation kernel on its tiled and
+direct paths, whole images and crops read from 3- and 4-channel
+canvases, and random shift vectors), drives the flagship chain
 (AugmentChain, 640 px input, 512 px crop) through them in the modes
 cuda_full, cuda_shear and cuda_fused, and the batched rotation op on
 single-channel masks, checks each output against its plain twin on the
-card, times each kernel's launch alone against its bytes bound and its
-plain version, the chain kernel's two paths and cluster sizes in turns,
-and the chains with CUDA events, profiles the chain's device work, counts
+card and that no main path took the rotation's direct gather or
+cuda_shear's torch crop, times each kernel's launch alone against its
+bytes bound and its plain version, the chain kernel's two paths and
+cluster sizes and the rotation kernel's two paths in turns,
+and the chains with CUDA events, profiles one launch of each kernel and
+the chains' device work, counts
 how often the card's float32 tan/sin move a shift vector against the
 CPU's, and prints the card's name and power limit, a JSON line of the
 kernels and, last, a JSON status line.  Any failed phase raises, so the
@@ -179,8 +184,8 @@ def sass_counts(so_path):
     for func in re.split(r"\n\s*Function : ", dump)[1:]:
         name = func.split("\n", 1)[0].strip()
         short = re.search(r"(chain_cluster_kernel|gather_luma_kernel|"
-                          r"finish_kernel|shear_rotate_kernel)"
-                          r"(?:ILi(\d+)E)?", name)
+                          r"finish_kernel|shear_tile_kernel)"
+                          r"(?:I((?:Li\d+E)+)E)?", name)
         if not short:
             continue
         ins = [(int(a, 16), op.strip()) for a, op in
@@ -191,8 +196,8 @@ def sass_counts(so_path):
             if m and int(m.group(1), 16) < at:
                 body = [o for a, o in ins if int(m.group(1), 16) <= a <= at]
                 loops.append((len(body), " ".join(body)))
-        label = short.group(1) + (f"<{short.group(2)}>" if short.group(2)
-                                  else "")
+        args = re.findall(r"Li(\d+)E", short.group(2) or "")
+        label = short.group(1) + (f"<{','.join(args)}>" if args else "")
         counts[label] = (len(ins), loops)
     return counts
 
@@ -263,6 +268,14 @@ def main() -> None:
               f"a thread, whole kernels): gather_luma "
               f"{sass['gather_luma_kernel'][0]} + finish "
               f"{sass['finish_kernel'][0]}")
+    for cin, cout in ((3, 3), (4, 3), (1, 1)):
+        total, _ = sass[f"shear_tile_kernel<{cin},{cout}>"]
+        tw = 128 if cin == 1 else 64  # csrc/shear_rotate.cu:tile_width
+        px = 8 * tw // 32
+        print(f"  sass, shear_tile_kernel<{cin},{cout}> (64 x {tw} tiles): "
+              f"{total} instructions for a thread's {px} pixels, "
+              f"{total / px:.1f} a pixel (static count; both gather paths, "
+              f"the walk and the staging included)")
     for S in (64, 512):
         for K in (8, 16):
             print(f"max active clusters at S={S}, C=3, K={K}: "
@@ -310,19 +323,84 @@ def main() -> None:
               f"{ANGLES} + random")
 
     # ---- shear_rotate (K2, K4) against its plain version ------------------
-    for S, C, B in ((512, 4, 16), (512, 3, 16), (512, 1, 16), (64, 2, 16),
-                    (768, 1, 16)):
+    # both paths of the kernel; kernels.direct_tiles
+    # counts the tiles that gathered from device memory: none on "tiled"
+    # with shear_params vectors, all of them on "direct"
+    def direct_count(fn):
+        kernels.direct_tiles = torch.zeros(1, dtype=torch.int32, device=dev)
+        try:
+            out = fn()
+            return out, int(kernels.direct_tiles)
+        finally:
+            kernels.direct_tiles = None
+
+    for S, C, B in ((512, 4, 16), (512, 3, 16), (512, 1, 16), (512, 2, 16),
+                    (64, 2, 16), (97, 1, 16), (768, 1, 16), (768, 3, 8)):
         imgs, angles, _, _ = crop_inputs(S, C, B, seed=S + C, dev=dev)
         shifts = geometry.shear_params(angles, S)
         if set(shifts[0].tolist()) != {0, 1, 2, 3}:
             raise AssertionError(f"S={S} C={C}: not every quad covered")
-        got = rotate.shear_rotate(imgs, *shifts)
         ref = geometry.rotate_square_shear_by(imgs, *shifts)
         name = "shear_rotate_packed" if C in (3, 4) else "shear_rotate"
-        max_err[name] = max(max_err[name], check_equal(
-            got, ref, f"kernel {name} != plain at S={S} C={C} B={B}"))
+        for path in rotate.PATHS:
+            got, n_direct = direct_count(lambda: rotate.launch_shear(
+                imgs, *shifts, path=path))
+            max_err[name] = max(max_err[name], check_equal(
+                got, ref, f"kernel {name} ({path}) != plain at S={S} C={C} "
+                f"B={B}"))
+            if (n_direct > 0) != (path == "direct"):
+                raise AssertionError(f"{name} {path}: {n_direct} direct tiles")
+        got = rotate.shear_rotate(imgs, *shifts)
+        check_equal(got, ref, f"shear_rotate != plain at S={S} C={C}")
         print(f"kernel {name} == plain, byte for byte: S={S} C={C} B={B}, "
-              f"every quad, angles {ANGLES} + random")
+              f"tiled and direct, every quad, angles {ANGLES} + random")
+    # K2 reading its crop from 3- and 4-channel canvases (cuda_shear's form)
+    for SIN, S, B, shift in ((640, 512, 16, 0), (640, 512, 8, -70),
+                             (128, 97, 8, 70)):
+        u4, y0, x0, angles, _, _ = kernel_inputs(SIN, S, B, seed=SIN + B,
+                                                 dev=dev)
+        y0, x0 = y0 + shift, x0 - shift
+        shifts = geometry.shear_params(angles, S)
+        for canvas in (u4, u4[..., :3].contiguous()):
+            ref = geometry.rotate_square_shear_by(
+                augment._crop(canvas[..., :3], y0, x0, S), *shifts)
+            for path in rotate.PATHS:
+                got, n_direct = direct_count(lambda: rotate.launch_shear(
+                    canvas, *shifts, offsets=(y0, x0), channels=3,
+                    path=path))
+                max_err["shear_rotate_packed"] = max(
+                    max_err["shear_rotate_packed"], check_equal(
+                        got, ref, f"shear_rotate_crop ({path}) != plain at "
+                        f"SIN={SIN} S={S} C={canvas.shape[3]} shift={shift}"))
+                if (n_direct > 0) != (path == "direct"):
+                    raise AssertionError(f"crop {path}: {n_direct} direct "
+                                         f"tiles")
+        print(f"kernel shear_rotate_packed reading the crop from the canvas "
+              f"== _crop then plain, byte for byte: SIN={SIN} S={S} B={B}, "
+              f"offsets shifted by {shift}, 3- and 4-channel canvases, tiled "
+              f"and direct")
+    # arbitrary vectors and quads outside [0, 4): tiles whose sources
+    # spread beyond the window take the direct path
+    for C in (1, 2, 3, 4):
+        S, B = 256, 8
+        rng = np.random.default_rng(40 + C)
+        imgs = torch.as_tensor(rng.integers(0, 256, (B, S, S, C), np.uint8),
+                               device=dev)
+        quad = torch.tensor([-1, 0, 1, 2, 3, 7, 4, -9], dtype=torch.int32,
+                            device=dev)
+        sh1, sh2 = (torch.as_tensor(rng.integers(-S, S + 1, (B, S)),
+                                    dtype=torch.int32, device=dev)
+                    for _ in range(2))
+        got, n_direct = direct_count(lambda: rotate.shear_rotate(
+            imgs, quad, sh1, sh2))
+        check_equal(got, geometry.rotate_square_shear_by(imgs, quad, sh1, sh2),
+                    f"shear_rotate, random vectors, C={C}")
+        if n_direct == 0:
+            raise AssertionError("random vectors: no tile took the direct "
+                                 "path")
+        print(f"kernel shear_rotate (C={C}) == plain on random shift vectors "
+              f"and quads outside [0, 4): {n_direct} tiles took the direct "
+              f"path")
 
     # ---- augment_fused (K3), both paths ------------------------------------
     for S, B in ((512, 16), (512, 64), (64, 8), (97, 8), (over, 2)):
@@ -343,24 +421,43 @@ def main() -> None:
     # C not in {3, 4} (where the TPU package launches _shear_kernel)
     inputs = {batch: chains.AugmentChain(640, device=dev).example_inputs(batch)
               for batch in BATCHES}
+    # each path also counts the shear kernel's direct tiles (none allowed)
+    # and the chain's calls of its torch crop (none allowed in cuda_shear,
+    # whose kernel reads the canvas)
     launches = {}
     outputs = {}
+    direct = {}
+    crop_calls = []
+    real_crop = chains._crop_one
     for mode, kernel in (("cuda_full", "augment_full"),
                          ("cuda_shear", "shear_rotate_packed"),
                          ("cuda_fused", "augment_fused")):
         chain = chains.AugmentChain(input_size=640, rotation=mode, device=dev)
-        outputs[mode], counts = drive(kernels, {kernel: 6}, lambda: {
-            batch: [chain(images, xywhn, seeds + i * batch)
-                    for i in range(3)]
-            for batch, (images, xywhn, seeds) in inputs.items()})
+        chains._crop_one = lambda *a, **k: crop_calls.append(mode) \
+            or real_crop(*a, **k)
+        try:
+            (outputs[mode], counts), direct[mode] = direct_count(
+                lambda: drive(kernels, {kernel: 6}, lambda: {
+                    batch: [chain(images, xywhn, seeds + i * batch)
+                            for i in range(3)]
+                    for batch, (images, xywhn, seeds) in inputs.items()}))
+        finally:
+            chains._crop_one = real_crop
         launches[kernel] = counts[kernel]
     masks = {batch: crop_inputs(512, 1, batch, seed=batch, dev=dev)[:2]
              for batch in BATCHES}
-    rotated, counts = drive(kernels, {"shear_rotate": 6}, lambda: {
-        batch: [rotate.rotate_square_shear_batch(m, a + 7.0 * i)
-                for i in range(3)]
-        for batch, (m, a) in masks.items()})
+    (rotated, counts), direct["masks"] = direct_count(lambda: drive(
+        kernels, {"shear_rotate": 6}, lambda: {
+            batch: [rotate.rotate_square_shear_batch(m, a + 7.0 * i)
+                    for i in range(3)]
+            for batch, (m, a) in masks.items()}))
     launches["shear_rotate"] = counts["shear_rotate"]
+    if direct["cuda_shear"] or direct["masks"]:
+        raise AssertionError(f"main paths took the direct gather: {direct}")
+    if "cuda_shear" in crop_calls:
+        raise AssertionError("cuda_shear called the torch crop")
+    print(f"main paths: the shear kernel's direct tiles {direct}; torch crop "
+          f"calls by mode {({m: crop_calls.count(m) for m in direct})}")
 
     twins = {"cuda_full": "full_reference", "cuda_shear": "shear"}
     for batch, (images, xywhn, seeds) in inputs.items():
@@ -413,8 +510,9 @@ def main() -> None:
         fused = augment.chain_args(crops, zeros, zeros, fshifts, prms, flips,
                                    *filt, 512)
         mask = crops[..., :1].contiguous()
-        codes = augment.d4_codes(dev)[fshifts[0] * 4]
-        rot = (codes, fshifts[1].contiguous(), fshifts[2].contiguous())
+        # the rotation's main-path forms: K2 reads the crop from the
+        # 3-channel canvas (cuda_shear), K4 rotates single-channel masks
+        rshifts = geometry.shear_params(angles, 512)
         plain = {
             "augment_full": lambda i: augment.augment_full_reference(
                 images, y0, x0, angles, prms, flips, *filt, crop=512,
@@ -422,19 +520,21 @@ def main() -> None:
             "augment_fused": lambda i: augment.augment_finish_reference(
                 crops, angles, prms, *filt, flips=flips, shifts=fshifts),
             "shear_rotate_packed": lambda i: geometry.rotate_square_shear_by(
-                crops, *fshifts),
+                augment._crop(images[..., :3], y0, x0, 512), *rshifts),
             "shear_rotate": lambda i: geometry.rotate_square_shear_by(
-                mask, *fshifts)}
+                mask, *rshifts)}
         launch = {
             "augment_full": lambda **kw: augment.launch_chain(
                 "augment_full", *full, **kw),
             "augment_fused": lambda **kw: augment.launch_chain(
                 "augment_fused", *fused, **kw),
-            "shear_rotate_packed": lambda: rotate.launch_shear(crops, *rot),
-            "shear_rotate": lambda: rotate.launch_shear(mask, *rot)}
+            "shear_rotate_packed": lambda **kw: rotate.launch_shear(
+                images, *rshifts, offsets=(y0, x0), channels=3, **kw),
+            "shear_rotate": lambda **kw: rotate.launch_shear(
+                mask, *rshifts, **kw)}
         bounds = {"augment_full": chain_bytes(512, B, 3),
                   "augment_fused": chain_bytes(512, B, 3),
-                  "shear_rotate_packed": rotate_bytes(512, B, 3),
+                  "shear_rotate_packed": rotate_bytes(512, B, 3) + 8 * B,
                   "shear_rotate": rotate_bytes(512, B, 1)}
         return launch, plain, bounds
 
@@ -467,6 +567,17 @@ def main() -> None:
                     >= best["two_pass"]:
                 raise AssertionError(f"{name} B=64: the cluster path is not "
                                      f"faster than the two-pass path")
+        # the rotation kernel's two paths, in turns
+        for name, C in (("shear_rotate_packed", 3), ("shear_rotate", 1)):
+            turns = [(path, device_ms(lambda: launch[name](path=path)))
+                     for path in ("tiled", "direct", "direct", "tiled")]
+            print(f"{name} (C={C}) B={B} S=512 in turns (device ms a "
+                  f"launch): " + ", ".join(f"{p} {t:.4f}" for p, t in turns)
+                  + f"; card {card}")
+            best = {p: min(t for q, t in turns if q == p) for p, _ in turns}
+            if B == 64 and best["tiled"] >= best["direct"]:
+                raise AssertionError(f"{name} B=64: the tiled path is not "
+                                     f"faster than the direct path")
 
     # ---- one launch, no memset; the chain's device work --------------------
     from torch.profiler import ProfilerActivity, profile
@@ -495,9 +606,16 @@ def main() -> None:
         if n_kernels != 1 or n_memset != 0 or len(names) != 1:
             raise AssertionError(f"{name}: not one kernel launch and no "
                                  f"memset: {names}")
+    for name in ("shear_rotate_packed", "shear_rotate"):
+        events, _ = device_events(launch[name], 1)
+        names = [e.name for e in events]
+        print(f"profiler, one {name} launch_shear call at B=64 S=512: device "
+              f"events {names}")
+        if len(names) != 1 or "shear_tile_kernel" not in names[0]:
+            raise AssertionError(f"{name}: not one device activity: {names}")
     for B in BATCHES:
         images, xywhn, seeds = inputs[B]
-        for mode in ("cuda_full", "cuda_fused"):
+        for mode in ("cuda_full", "cuda_shear", "cuda_fused"):
             events, wall = device_events(lambda: chains.augment_chain(
                 images, xywhn, seeds, rotation=mode), 10)
             busy = sum(e.time_range.elapsed_us() for e in events) / 1e4

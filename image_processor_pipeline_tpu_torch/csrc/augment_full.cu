@@ -112,13 +112,6 @@ inline int cluster_smem_bytes(int S, int K) {
   return kFixedSmem + ((14 * S + 15) & ~15) + 4 * band * (S + 1);
 }
 
-// lax.dynamic_slice's index rule: a negative offset counts from the end,
-// then the window is clamped into the canvas.
-__device__ __forceinline__ int crop_offset(int off, int S, int SIN) {
-  if (off < 0) off += SIN;
-  return min(max(off, 0), SIN - S);
-}
-
 __device__ __forceinline__ float brighten(int ch, float fb) {
   return floorf(fminf(__fmul_rn((float)ch, fb), 255.f));
 }
@@ -399,8 +392,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1) chain_cluster_kernel(
   // staged crop is indexed [a][c] (gather): by crop row for a D4 element
   // without transpose, by crop column with one (d4 & 4).
   const int d4 = item.z;
-  const int y0 = crop_offset(item.x, S, SIN);
-  const int x0 = crop_offset(item.y, S, SIN);
+  const int y0 = ipp::crop_offset(item.x, S, SIN);
+  const int x0 = ipp::crop_offset(item.y, S, SIN);
   const bool tr = d4 & 4;
   // line l: `len` pixels of crop row row0 + l from crop column col0, its
   // pixel k staged at px[l * lstride + k * step]
@@ -506,8 +499,8 @@ struct Canvas {
   int SIN, C;
   __device__ __forceinline__ int32_t load(int b, int4 item, int row, int col,
                                           int S) const {
-    const int y0 = crop_offset(item.x, S, SIN);
-    const int x0 = crop_offset(item.y, S, SIN);
+    const int y0 = ipp::crop_offset(item.x, S, SIN);
+    const int x0 = ipp::crop_offset(item.y, S, SIN);
     const uint8_t* p =
         img + (((size_t)b * SIN + (y0 + row)) * SIN + (x0 + col)) * C;
     if (C == 4 && (reinterpret_cast<uintptr_t>(p) & 3) == 0)

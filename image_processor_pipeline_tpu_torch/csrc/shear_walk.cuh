@@ -1,5 +1,8 @@
-// The inverse walk of the Paeth three-shear rotation, shared by the port's
-// gather kernels (augment_full.cu, shear_rotate.cu).
+// The inverse walk of the Paeth three-shear rotation and the crop offset
+// rule, shared by the port's gather kernels: augment_full.cu walks with
+// shear_back and shear_source; shear_rotate.cu takes the same three steps
+// inline on the vectors it stages with a margin (no range check between
+// the steps); both place their crops with crop_offset.
 //
 // The forward rotation of an S x S image is: a D4 element (quarter turn,
 // and in the augment chain the user flip), then shear 1 (x by sh1 per
@@ -50,6 +53,14 @@ __device__ __forceinline__ bool shear_source(
   col = (d4 & 4) ? a : c;
   if (!hit) row = col = 0;
   return hit;
+}
+
+// lax.dynamic_slice's index rule for a crop of side S at offset off of a
+// canvas side SIN: a negative offset counts from the end, then the window
+// is clamped into the canvas.
+__device__ __forceinline__ int crop_offset(int off, int S, int SIN) {
+  if (off < 0) off += SIN;
+  return min(max(off, 0), SIN - S);
 }
 
 }  // namespace ipp

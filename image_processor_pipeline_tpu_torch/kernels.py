@@ -8,7 +8,9 @@ processes; the library is rebuilt when any file under ``csrc/``, a shared
 header included, is newer than it.
 
 ``launch_counts`` counts, per kernel, the wrapper calls that launched it on
-the device, so a run can show that its main path went through the kernel.
+the device, so a run can show that its main path went through the kernel;
+``direct_tiles``, when set, counts the rotation kernel's tiles that took
+its direct path.
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ NVCC_FLAGS = (
 # (_shear_kernel, any other C)
 launch_counts = {"augment_full": 0, "augment_fused": 0,
                  "shear_rotate_packed": 0, "shear_rotate": 0}
+# an int32 [1] tensor on the card, or None: while it is set, the shear
+# kernel adds one to it for each tile it gathers straight from device
+# memory instead of from its shared-memory window (csrc/shear_rotate.cu)
+direct_tiles = None
 
 _lock = threading.Lock()
 _lib = None
@@ -121,7 +127,7 @@ def library() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.ipp_augment_full.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
             lib.ipp_augment_max_active_clusters.argtypes = [i32] * 3 + [ptr]
-            lib.ipp_shear_rotate.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+            lib.ipp_shear_rotate.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
             for fn in (lib.ipp_augment_full,
                        lib.ipp_augment_max_active_clusters,
                        lib.ipp_shear_rotate):

@@ -16,9 +16,9 @@ in the JAX package whose output it equals:
   'full_reference'  the plain torch twin of that kernel ('full_reference');
   'shear'           crop → rotate_square_shear → flip → mask → enhance in
                     torch ops, the XLA 'shear' mode;
-  'cuda_shear'      the same stages with the rotation in the hand-written
-                    CUDA shear kernel ('pallas'); the plain twin on a CPU
-                    tensor;
+  'cuda_shear'      the same stages with the crop and rotation in the
+                    hand-written CUDA shear kernel, which reads the canvas
+                    ('pallas'); the plain twin on a CPU tensor;
   'cuda_fused'      crop, then flip → rotate → mask → enhance in one
                     hand-written CUDA kernel launch ('pallas_fused'); the
                     plain twin on a CPU tensor;
@@ -47,9 +47,7 @@ from image_processor_pipeline_tpu_torch.ops.augment import (
     augment_fused_full,
     pack_rgba,
 )
-from image_processor_pipeline_tpu_torch.ops.rotate import (
-    rotate_square_shear_batch,
-)
+from image_processor_pipeline_tpu_torch.ops.rotate import shear_rotate_crop
 
 CROP = 512
 
@@ -146,15 +144,19 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
                                       prms, flips, _FILTER_LOWERS,
                                       _FILTER_UPPERS, _FILTER_ZONES,
                                       crop=crop)
+    if rotation == "cuda_shear":
+        # the kernel reads its crop from the canvas: no torch crop index
+        rotated = shear_rotate_crop(images.contiguous(), y0, x0,
+                                    *geometry.shear_params(angles, crop), crop)
+        return _finish_one(rotated, flips, prms, crop)
     cropped = _crop_one(images[..., :3], y0, x0, crop).contiguous()
     if rotation in ("cuda_fused", "fused_reference"):
         fn = augment_fused if rotation == "cuda_fused" \
             else augment_finish_reference
         return fn(cropped, angles, prms, _FILTER_LOWERS, _FILTER_UPPERS,
                   _FILTER_ZONES, flips=flips)
-    rotate = geometry.rotate_square_shear if rotation == "shear" \
-        else rotate_square_shear_batch
-    return _finish_one(rotate(cropped, angles), flips, prms, crop)
+    return _finish_one(geometry.rotate_square_shear(cropped, angles), flips,
+                       prms, crop)
 
 
 class AugmentChain(nn.Module):

@@ -160,3 +160,25 @@ def test_port_never_imports_jax():
                           text=True, timeout=120,
                           cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_cuda_shear_reads_the_canvas_without_a_crop_index(monkeypatch,
+                                                          channels):
+    """'cuda_shear' hands the canvas and offsets to shear_rotate_crop (no
+    _crop_one), launches nothing on the CPU, and equals 'shear' on 3- and
+    4-channel canvases."""
+    images, xywhn, seeds = chain_inputs(4, 96, seed=14)
+    if channels == 4:
+        alpha = np.full((*images.shape[:3], 1), 77, np.uint8)
+        images = np.concatenate([images, alpha], axis=-1)
+    images = torch.as_tensor(images)
+    crops = []
+    real = tchains._crop_one
+    monkeypatch.setattr(tchains, "_crop_one",
+                        lambda *a, **k: crops.append(1) or real(*a, **k))
+    kernels.reset_launch_counts()
+    got = tchains.augment_chain(images, xywhn, seeds, 64, "cuda_shear")
+    assert crops == [] and all(n == 0 for n in kernels.launch_counts.values())
+    want = tchains.augment_chain(images, xywhn, seeds, 64, "shear")
+    assert crops == [1] and torch.equal(got, want)

@@ -116,20 +116,114 @@ def rotate_args(B, S, C, dev):
     return imgs, geometry.shear_params(angles, S)
 
 
+@pytest.fixture
+def direct_tiles(cuda_device):
+    """kernels.direct_tiles set to a zeroed counter for the test."""
+    kernels.direct_tiles = torch.zeros(1, dtype=torch.int32,
+                                       device=cuda_device)
+    yield kernels.direct_tiles
+    kernels.direct_tiles = None
+
+
+def rotate_name(C):
+    return "shear_rotate_packed" if C in (3, 4) else "shear_rotate"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,C,B", [(64, 1, 16), (64, 2, 16), (64, 3, 16),
-                                   (64, 4, 16), (512, 3, 12), (512, 4, 12),
-                                   (512, 1, 12), (768, 1, 12)])
-def test_shear_rotate_matches_plain_on_card(cuda_device, S, C, B):
-    imgs, shifts = rotate_args(B, S, C, cuda_device)
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("S", [64, 97, 512, 768])
+def test_shear_rotate_matches_plain_on_card(cuda_device, direct_tiles, S, C):
+    """The tiled path, every quad and the boundary angles: no tile of
+    shear_params vectors leaves its window."""
+    imgs, shifts = rotate_args(16 if S < 512 else 10, S, C, cuda_device)
     kernels.reset_launch_counts()
     got = rotate.shear_rotate(imgs, *shifts)
-    name = "shear_rotate_packed" if C in (3, 4) else "shear_rotate"
-    assert kernels.launch_counts[name] == 1
+    assert kernels.launch_counts[rotate_name(C)] == 1
     assert sum(kernels.launch_counts.values()) == 1
     want = geometry.rotate_square_shear_by(imgs, *shifts)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert int(direct_tiles) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+def test_shear_rotate_arbitrary_vectors_on_card(cuda_device, direct_tiles, C):
+    """Random shifts past the clip and quads outside [0, 4): the kernel
+    applies applied_shifts itself, and the tiles whose sources spread
+    beyond the window take the direct path."""
+    B, S = 8, 256
+    rng = np.random.default_rng(20 + C)
+    imgs = torch.as_tensor(rng.integers(0, 256, (B, S, S, C), np.uint8),
+                           device=cuda_device)
+    quad = torch.tensor([-1, 0, 1, 2, 3, 7, 4, -9], dtype=torch.int32,
+                        device=cuda_device)
+    sh1, sh2 = (torch.as_tensor(rng.integers(-S, S + 1, (B, S)),
+                                dtype=torch.int32, device=cuda_device)
+                for _ in range(2))
+    got = rotate.shear_rotate(imgs, quad, sh1, sh2)
+    want = geometry.rotate_square_shear_by(imgs, quad, sh1, sh2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(direct_tiles) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C", [(97, 1), (97, 2), (512, 3), (512, 4),
+                                 (768, 1)])
+def test_shear_rotate_forced_direct_on_card(cuda_device, direct_tiles, S, C):
+    imgs, (quad, sh1, sh2) = rotate_args(8, S, C, cuda_device)
+    got = rotate.launch_shear(imgs, quad, sh1, sh2, path="direct")
+    want = geometry.rotate_square_shear_by(imgs, quad, sh1, sh2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(direct_tiles) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["tiled", "direct"])
+@pytest.mark.parametrize("S,C", [(97, 1), (97, 3), (512, 1), (512, 3),
+                                 (768, 4)])
+def test_shear_rotate_each_path_on_card(cuda_device, direct_tiles, S, C,
+                                        path):
+    imgs, shifts = rotate_args(8, S, C, cuda_device)
+    got = rotate.launch_shear(imgs, *shifts, path=path)
+    want = geometry.rotate_square_shear_by(imgs, *shifts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (int(direct_tiles) > 0) == (path == "direct")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["tiled", "direct"])
+@pytest.mark.parametrize("cin", [3, 4])
+@pytest.mark.parametrize("SIN,S,shift", [(96, 64, -70), (128, 97, 70),
+                                         (640, 512, -70), (640, 512, 0)])
+def test_shear_rotate_crop_on_card(cuda_device, direct_tiles, SIN, S, shift,
+                                   cin, path):
+    """cuda_shear's crop read from 3- and 4-channel canvases, offsets moved
+    off the canvas, against _crop then the plain twin."""
+    B = 8
+    rng = np.random.default_rng(SIN + cin)
+    canvas = torch.as_tensor(rng.integers(0, 256, (B, SIN, SIN, cin),
+                                          np.uint8), device=cuda_device)
+    y0, x0 = (torch.as_tensor(rng.integers(0, SIN - S + 1, B) + d,
+                              dtype=torch.int32, device=cuda_device)
+              for d in (shift, -shift))
+    angles = torch.as_tensor(np.asarray(BOUNDARY_ANGLES[:B], np.float32),
+                             device=cuda_device)
+    shifts = geometry.shear_params(angles, S)
+    kernels.reset_launch_counts()
+    got = rotate.launch_shear(canvas, *shifts, offsets=(y0, x0), channels=3,
+                              path=path)
+    assert kernels.launch_counts["shear_rotate_packed"] == 1
+    want = geometry.rotate_square_shear_by(
+        augment._crop(canvas[..., :3], y0, x0, S), *shifts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (int(direct_tiles) > 0) == (path == "direct")
+    assert torch.equal(rotate.shear_rotate_crop(canvas, y0, x0, *shifts, S),
+                       want)
 
 
 @pytest.mark.cuda
