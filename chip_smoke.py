@@ -19,7 +19,16 @@ cluster sizes and the rotation kernel's two paths in turns,
 and the chains with CUDA events, profiles one launch of each kernel and
 the chains' device work, counts
 how often the card's float32 tan/sin move a shift vector against the
-CPU's, and prints the card's name and power limit, a JSON line of the
+CPU's, holds the probe kernel's four moves (utils/rev_probe.py) against
+torch.flip, torch.roll and clone and drives the probe's own entry point,
+and drives the engine: over a dataset of 640 x 480 PNGs with YOLO labels
+made from a seed in a temporary directory, ProcessingPipeline A
+(SquareCropAroundBBox, then copy_img_with_labels) and B (RandomRotations
+with method="shear", which launches the rotation kernel, then
+GenerateSymmetries), all on the card, with every item's status, the file
+counts, each crop against its source window, one rotation batch against
+the plain twin, the kernel's launches and the step's idle share checked
+or printed.  It prints the card's name and power limit, a JSON line of the
 kernels and, last, a JSON status line.  Any failed phase raises, so the
 status line is printed only when every phase passed.  Without a CUDA card
 it exits non-zero.
@@ -28,11 +37,15 @@ it exits non-zero.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -50,6 +63,11 @@ KERNELS = {
 ANGLES = (0.0, 44.99, 45.0, 45.01, 90.0, 135.0, 180.0, 270.0, 315.0, 358.9)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BATCHES = (8, 64)
+# the engine phase: images of the dataset (256 take some 100 s on 8 cores,
+# nearly all of it PNG encoding on the host), their size, rotations an image
+ENGINE_IMAGES = 128
+ENGINE_H, ENGINE_W = 480, 640
+ENGINE_ROTATIONS = 4
 
 
 def kernel_inputs(SIN, S, B, seed, dev):
@@ -143,12 +161,13 @@ def check_not_degenerate(out, what):
 
 def drive(kernels, expected, fn):
     """Run fn() with every launch count set to 0 just before and read just
-    after; raise unless the counts are ``expected`` (others 0)."""
+    after; raise unless the counts are ``expected`` (others 0; None leaves
+    the check to the caller)."""
     kernels.reset_launch_counts()
     result = fn()
     counts = dict(kernels.launch_counts)
     torch.cuda.synchronize()
-    want = {name: expected.get(name, 0) for name in counts}
+    want = {name: (expected or counts).get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     return result, counts
@@ -223,6 +242,80 @@ def rotate_bytes(S, B, C):
     return B * (2 * S * S * C + 2 * 4 * S + 4)
 
 
+def write_engine_dataset(root, n, seed, workers):
+    """``n`` RGB PNGs of ENGINE_H x ENGINE_W (a gradient with one filled
+    rectangle for each box) under root/imgs and their YOLO label files, one
+    to three boxes each, under root/labels; every box lies in a window that
+    a square crop of the shorter side can hold."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    (root / "imgs").mkdir(parents=True)
+    (root / "labels").mkdir()
+    yy, xx = np.mgrid[0:ENGINE_H, 0:ENGINE_W]
+    jobs = []
+    for i in range(n):
+        p0, p1, p2 = rng.integers(0, 256, 3)
+        img = np.stack([(yy // 2 + xx // 3 + p0) % 256, (xx // 2 + p1) % 256,
+                        (yy // 3 + xx // 5 + p2) % 256], -1).astype(np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(1, 4))):
+            cx, cy = rng.uniform(0.3, 0.7, 2)
+            bw, bh = rng.uniform(0.05, 0.2), rng.uniform(0.05, 0.3)
+            x1, x2 = int((cx - bw / 2) * ENGINE_W), int((cx + bw / 2) * ENGINE_W)
+            y1, y2 = int((cy - bh / 2) * ENGINE_H), int((cy + bh / 2) * ENGINE_H)
+            img[y1:y2, x1:x2] = rng.integers(0, 256, 3)
+            lines.append(f"{rng.integers(0, 5)} {cx:.6f} {cy:.6f} {bw:.6f} "
+                         f"{bh:.6f}")
+        (root / "labels" / f"im_{i:04d}.txt").write_text(
+            "\n".join(lines) + "\n")
+        jobs.append((img, root / "imgs" / f"im_{i:04d}.png"))
+    with ThreadPoolExecutor(workers) as ex:
+        list(ex.map(lambda job: Image.fromarray(job[0]).save(job[1]), jobs))
+    return root / "imgs", root / "labels"
+
+
+def busy_ms(events):
+    """Milliseconds covered by the union of the device events' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, edge = 0, None
+    for start, end in spans:
+        if edge is None or start > edge:
+            busy += end - start
+            edge = end
+        elif end > edge:
+            busy += end - edge
+            edge = end
+    return busy / 1e3
+
+
+def step_line(step, card):
+    m = step.metrics
+    return (f"engine step {step.name}: {dict(step.status_counter)}, "
+            f"{m.items} items in {m.wall_seconds:.3f} s "
+            f"({m.items_per_second:.1f} items/s), {m.batches} batches; "
+            f"StageMetrics load {m.host_load_seconds:.3f} s, device "
+            f"{m.device_seconds:.3f} s, save {m.host_save_seconds:.3f} s "
+            f"(save is summed over {step.workers} saver threads); "
+            f"card {card}")
+
+
+def require_success(step, n_items):
+    if dict(step.status_counter) != {"Success": n_items}:
+        errors = [log for log in step.process_logs
+                  if log["status"] != "Success"][:3]
+        raise AssertionError(f"engine step {step.name}: statuses "
+                             f"{dict(step.status_counter)}, expected "
+                             f"{n_items} Success; first failures {errors}")
+
+
+def count_files(directory, n, what):
+    found = sum(1 for p in Path(directory).iterdir() if p.is_file())
+    if found != n:
+        raise AssertionError(f"engine: {found} files in {what}, expected {n}")
+    return found
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -231,6 +324,7 @@ def main() -> None:
     from image_processor_pipeline_tpu_torch.models import chains
     from image_processor_pipeline_tpu_torch.ops import augment, geometry
     from image_processor_pipeline_tpu_torch.ops import rotate
+    from image_processor_pipeline_tpu_torch.utils import rev_probe
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -595,9 +689,20 @@ def main() -> None:
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         return events, wall
 
+    def one_call_events(fn):
+        """The device activities of one call of ``fn``.  The profiler now
+        and then returns an empty trace for a single short launch: that
+        says nothing about the call, so it is traced again, at most three
+        times; a trace that stays empty fails the checks below."""
+        for _ in range(3):
+            events, _ = device_events(fn, 1)
+            if events:
+                break
+        return events
+
     launch, _, _ = launch_args(64)
     for name in ("augment_full", "augment_fused"):
-        events, _ = device_events(launch[name], 1)
+        events = one_call_events(launch[name])
         names = [e.name for e in events]
         n_kernels = sum("chain_cluster_kernel" in n for n in names)
         n_memset = sum("emset" in n for n in names)
@@ -607,7 +712,7 @@ def main() -> None:
             raise AssertionError(f"{name}: not one kernel launch and no "
                                  f"memset: {names}")
     for name in ("shear_rotate_packed", "shear_rotate"):
-        events, _ = device_events(launch[name], 1)
+        events = one_call_events(launch[name])
         names = [e.name for e in events]
         print(f"profiler, one {name} launch_shear call at B=64 S=512: device "
               f"events {names}")
@@ -657,6 +762,234 @@ def main() -> None:
           f"shift difference {f6['max_step']} "
           f"({time.perf_counter() - t0:.1f} s)")
 
+
+    # ---- P1: the probe kernel's four moves ----------------------------------
+    # byte for byte against torch.flip / torch.roll / clone, on the probe's
+    # [512, 512] block (16-byte vectors) and on an odd shape (single words)
+    p1_err = 0
+    for rows, cols in ((rev_probe.S, rev_probe.S), (37, 101)):
+        x = torch.as_tensor(np.random.default_rng(rows).integers(
+            -2**31, 2**31, (rows, cols), dtype=np.int64).astype(np.int32),
+            device=dev)
+        for name in rev_probe.MOVES:
+            for shift in ((7, -3, cols + 5) if name == "roll" else (7,)):
+                kernels.reset_launch_counts()
+                got = rev_probe.move(x, name, shift)
+                if kernels.launch_counts["rev_probe"] != 1:
+                    raise AssertionError("rev_probe: not one wrapper launch")
+                p1_err = max(p1_err, check_equal(
+                    got, rev_probe.plain_move(x, name, shift),
+                    f"kernel rev_probe {name} != plain at [{rows}, {cols}] "
+                    f"shift {shift}"))
+        print(f"kernel rev_probe == plain (torch.flip, torch.roll, clone), "
+              f"byte for byte: int32 [{rows}, {cols}], moves "
+              f"{tuple(rev_probe.MOVES)}")
+    # its main path is the probe's own entry point
+    _, counts = drive(kernels, {"rev_probe": 4 * 202}, rev_probe.main)
+    launches["rev_probe"] = counts["rev_probe"]
+    x = torch.arange(rev_probe.S ** 2, dtype=torch.int32,
+                     device=dev).reshape(rev_probe.S, rev_probe.S)
+    p1_ms, p1_lib_ms = {}, {}
+    for name in rev_probe.MOVES:
+        turns = [(which, device_ms(fn, calls=200)) for which, fn in (
+            ("kernel", lambda: rev_probe.launch_move(x, name)),
+            ("torch", lambda: rev_probe.plain_move(x, name)),
+            ("torch", lambda: rev_probe.plain_move(x, name)),
+            ("kernel", lambda: rev_probe.launch_move(x, name)))]
+        p1_ms[name] = min(ms for which, ms in turns if which == "kernel")
+        p1_lib_ms[name] = min(ms for which, ms in turns if which == "torch")
+        print(f"rev_probe {name} int32 [512, 512] in turns (device ms a "
+              f"launch): " + ", ".join(f"{w} {ms:.5f}" for w, ms in turns)
+              + f"; card {card}")
+    p1_bound_ms = 2 * 4 * rev_probe.S ** 2 / HBM_BYTES_PER_S * 1e3
+    print(f"rev_probe bound {p1_bound_ms:.6f} ms (2 x {4 * rev_probe.S ** 2} "
+          f"bytes at 3.35 TB/s): a launch this small is set by launch "
+          f"latency, not bytes")
+
+    # ---- the engine: pipelines A and B over a directory of files ----------
+    import PIL
+
+    from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
+                                                    ProcessingStep)
+    from image_processor_pipeline_tpu_torch.io import images as io_images
+    from image_processor_pipeline_tpu_torch.io.labels import read_yolo_labels
+    from image_processor_pipeline_tpu_torch.transforms import (
+        GenerateSymmetries, RandomRotations, SquareCropAroundBBox,
+        copy_img_with_labels, crop_square, rotations)
+
+    print(f"codec: {io_images.CODEC} {PIL.__version__} (host decode and "
+          f"encode)")
+    workers = os.cpu_count() or 1
+    n = ENGINE_IMAGES
+    crop_seed, rot_seed, sym_seed = 11, 12, 13
+    rot_options = {"method": "shear", "num_rotations": ENGINE_ROTATIONS}
+    with tempfile.TemporaryDirectory(prefix="ipp_smoke_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        imgs_dir, labels_dir = write_engine_dataset(root / "data", n, 5,
+                                                    workers)
+        print(f"engine dataset: {n} RGB PNGs of {ENGINE_W} x {ENGINE_H} "
+              f"with 1 to 3 boxes each, made from seed 5 in "
+              f"{time.perf_counter() - t0:.1f} s; {workers} workers a step")
+        pipe_a = ProcessingPipeline(root_dir=root / "A")
+        pipe_a.add_step(ProcessingStep(
+            "crop_square", SquareCropAroundBBox(),
+            input_dirs=[imgs_dir, labels_dir],
+            output_dirs=["crops/imgs", "crops/labels"], pairing_method="zip",
+            seed=crop_seed, workers=workers, save_log=True, device=dev))
+        pipe_a.add_step(ProcessingStep(
+            "copy", copy_img_with_labels,
+            output_dirs=["copy/imgs", "copy/labels"], pairing_method="zip",
+            workers=workers, save_log=True))
+        pipe_b = ProcessingPipeline(root_dir=root / "B")
+        pipe_b.add_step(ProcessingStep(
+            "rotations", RandomRotations(),
+            input_dirs=[root / "A" / "crops" / "imgs"], output_dirs=["rot"],
+            seed=rot_seed, workers=workers, save_log=True,
+            options=rot_options, device=dev))
+        pipe_b.add_step(ProcessingStep(
+            "symmetry", GenerateSymmetries(), output_dirs=["sym"],
+            seed=sym_seed, workers=workers, save_log=True, device=dev))
+
+        def run_engine():
+            pipe_a.run(progress=False)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                pipe_b.run(from_step_index=0, only_one=True, progress=False)
+                torch.cuda.synchronize()
+            pipe_b.run(from_step_index=1, progress=False)
+            return prof
+
+        crop_step, copy_step = pipe_a.steps
+        rot_step, sym_step = pipe_b.steps
+        t0 = time.perf_counter()
+        (prof, counts), engine_direct = direct_count(
+            lambda: drive(kernels, None, run_engine))
+        engine_s = time.perf_counter() - t0
+        n_rot = n * (ENGINE_ROTATIONS + 1)
+        for step, items in ((crop_step, n), (copy_step, n), (rot_step, n),
+                            (sym_step, n_rot)):
+            require_success(step, items)
+            print(step_line(step, card))
+        files = {
+            "A/crops/imgs": count_files(root / "A/crops/imgs", n, "crops"),
+            "A/crops/labels": count_files(root / "A/crops/labels", n,
+                                          "crop labels"),
+            "A/copy/imgs": count_files(root / "A/copy/imgs", n, "copies"),
+            "A/copy/labels": count_files(root / "A/copy/labels", n,
+                                         "copied labels"),
+            "B/rot": count_files(root / "B/rot", n_rot, "rotations"),
+            "B/sym": count_files(root / "B/sym", 4 * n_rot, "symmetries")}
+        print(f"engine files: {files} in {engine_s:.1f} s")
+        want = {name: 0 for name in counts} | {
+            "shear_rotate_packed": rot_step.metrics.batches}
+        if counts != want or rot_step.metrics.batches < n // 8:
+            raise AssertionError(f"engine launch counts {counts}, expected "
+                                 f"{want}")
+        if engine_direct:
+            raise AssertionError(f"engine: {engine_direct} tiles took the "
+                                 f"direct gather")
+        launches["shear_rotate_packed"] += counts["shear_rotate_packed"]
+        print(f"engine: shear_rotate_packed launched "
+              f"{counts['shear_rotate_packed']} times, once for each of the "
+              f"rotations step's {rot_step.metrics.batches} batches; direct "
+              f"tiles {engine_direct}")
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = busy_ms(events)
+        wall = rot_step.metrics.wall_seconds * 1e3
+        by_name = {}
+        for e in events:
+            by_name[e.name] = (by_name.get(e.name, 0)
+                               + e.time_range.elapsed_us() / 1e3)
+        top = sorted(((name[:48], ms) for name, ms in by_name.items()),
+                     key=lambda kv: -kv[1])[:5]
+        shear_ms = sum(ms for name, ms in by_name.items()
+                       if "shear_tile_kernel" in name)
+        print(f"profiler, engine step rotations: wall {wall:.1f} ms, device "
+              f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f}; "
+              f"shear_tile_kernel {shear_ms:.3f} ms in all; largest "
+              + ", ".join(f"{name} {ms:.1f}" for name, ms in top)
+              + f"; card {card}")
+        if shear_ms <= 0:
+            raise AssertionError("profiler saw no shear_tile_kernel")
+
+        # each crop is a window of its source at the offsets the step drew
+        names = sorted(p.name for p in imgs_dir.iterdir())
+        picked = list(range(0, n, max(1, n // 64)))
+        labels = [read_yolo_labels(labels_dir / f"{Path(names[i]).stem}.txt")
+                  for i in picked]
+        cls = np.zeros((len(picked), crop_square.MAX_BOXES), np.int32)
+        box = np.zeros((len(picked), crop_square.MAX_BOXES, 4), np.float32)
+        for row, (c, b) in enumerate(labels):
+            cls[row, :len(c)], box[row, :len(c)] = c, b
+        geom = crop_square._geom(
+            np.full(len(picked), ENGINE_H, np.int32),
+            np.full(len(picked), ENGINE_W, np.int32), cls, box,
+            np.asarray([len(c) for c, _ in labels], np.int32),
+            np.asarray([(crop_seed + i) & 0x7FFFFFFF for i in picked],
+                       np.uint32))
+        for row, i in enumerate(picked):
+            y0, x0, s = (int(geom[k][row]) for k in ("y0", "x0", "crop_size"))
+            src = io_images.decode_image(imgs_dir / names[i], "RGB")
+            got = io_images.decode_image(root / "A/crops/imgs" / names[i],
+                                         "RGB")
+            if got.shape != (s, s, 3) or not np.array_equal(
+                    got, src[y0:y0 + s, x0:x0 + s]):
+                raise AssertionError(f"engine: crop {names[i]} is not its "
+                                     f"source's window at ({y0}, {x0})")
+        print(f"engine: {len(picked)} crops are their sources' "
+              f"{ENGINE_H} x {ENGINE_H} windows at the offsets drawn from "
+              f"seed {crop_seed} + index (first offsets "
+              f"{[(int(geom['y0'][r]), int(geom['x0'][r])) for r in range(4)]})")
+
+        # one rotation batch through device_fn, kernel against plain twin
+        transform = rot_step.process_function
+        crops = sorted((root / "A/crops/imgs").iterdir())[:8]
+        chunk = [transform.load_item((p,), rot_options) for p in crops]
+        for i, item in enumerate(chunk):
+            item["_seed"] = (rot_seed + i) & 0x7FFFFFFF
+        key = transform.bucket_key(chunk[0], rot_options)
+        kernel_out = transform.launch_batch(key, chunk, rot_options, dev)
+
+        def plain_batch(images, angles, shifts=None):
+            if shifts is None:
+                shifts = geometry.shear_params(angles, images.shape[1])
+            return geometry.rotate_square_shear_by(images, *shifts)
+
+        real_batch = rotations.rotate_ops.rotate_square_shear_batch
+        rotations.rotate_ops.rotate_square_shear_batch = plain_batch
+        try:
+            plain_out = transform.launch_batch(key, chunk, rot_options, dev)
+        finally:
+            rotations.rotate_ops.rotate_square_shear_batch = real_batch
+        for k in kernel_out:
+            check_equal(kernel_out[k].to(dev), plain_out[k].to(dev),
+                        f"engine rotations device_fn[{k!r}], kernel != plain "
+                        f"twin")
+        shape = tuple(kernel_out["images"].shape)
+        print(f"engine: one rotations batch, device_fn with the kernel == "
+              f"with geometry.rotate_square_shear_by in its place, byte for "
+              f"byte: images {shape}, heights, widths, angles")
+
+        # the kernel alone at the rotations step's shape
+        B, R, S, _, C = shape
+        eimgs = kernel_out["images"].reshape(B * R, S, S, C).contiguous()
+        eshifts = geometry.shear_params(
+            kernel_out["angles"].reshape(-1).to(dev), S)
+        engine_kernel = {
+            "shape": [B * R, S, S, C],
+            "ms": device_ms(lambda: rotate.launch_shear(eimgs, *eshifts)),
+            "plain_ms": statistics.median(time_calls(
+                lambda i: geometry.rotate_square_shear_by(eimgs, *eshifts),
+                calls=5, windows=3)),
+            "bound_ms": rotate_bytes(S, B * R, C) / HBM_BYTES_PER_S * 1e3}
+        print(f"shear_rotate_packed at the rotations step's shape "
+              f"{engine_kernel['shape']}: kernel {engine_kernel['ms']:.4f} ms "
+              f"of device time a launch, bound "
+              f"{engine_kernel['bound_ms']:.4f} ms, plain "
+              f"{engine_kernel['plain_ms']:.4f} ms a call; card {card}")
+        del kernel_out, plain_out, eimgs
+
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
@@ -668,7 +1001,17 @@ def main() -> None:
         "device_ms": {f"B={B}": dev_ms[name, B] for B in BATCHES},
         "bound_ms_by_batch": {f"B={B}": bound_ms[name, B] for B in BATCHES},
         "plain_ms_by_batch": {f"B={B}": plain_ms[name, B] for B in BATCHES},
-    } for name, (source, replaces) in KERNELS.items()]}))
+    } | ({"engine": engine_kernel} if name == "shear_rotate_packed" else {})
+        for name, (source, replaces) in KERNELS.items()] + [{
+        "name": "rev_probe", "route": "cuda", "source": CSRC + "rev_probe.cu",
+        "replaces": "benchmarks/rev_probe.py:25",
+        "launches": launches["rev_probe"], "max_abs_err": p1_err,
+        "ms": statistics.mean(p1_ms.values()),
+        "plain_ms": statistics.mean(p1_lib_ms.values()),
+        "bound_ms": p1_bound_ms, "bound_by": "bytes",
+        "library_ms": statistics.mean(p1_lib_ms.values()),
+        "block": [rev_probe.S, rev_probe.S],
+        "ms_by_move": p1_ms, "library_ms_by_move": p1_lib_ms}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

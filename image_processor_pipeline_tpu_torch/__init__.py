@@ -2,16 +2,24 @@
 image_processor_pipeline_tpu, for NVIDIA Hopper (H100, sm_90a).
 
 Module names mirror the JAX package so each counterpart is easy to find:
-``random`` (jax.random's threefry draws, bit-exact), ``ops.*`` (plain torch
-twins of the JAX ops), ``ops.augment`` (the flagship chain's glue and the
-wrapper around the hand-written CUDA kernel in ``csrc/``), ``kernels``
-(nvcc build and ctypes binding), ``models.chains`` (the chain as an
-``nn.Module``) and ``interop`` (carries the JAX package's draws across).
+``pipeline`` (the engine: ``ProcessingPipeline`` of ``ProcessingStep``s over
+directories of images and YOLO labels), ``pairing``, ``io`` (decode, encode,
+labels, bucketing), ``transforms`` (``SquareCropAroundBBox``,
+``RandomRotations``, ``GenerateSymmetries`` and the host steps), ``random``
+(jax.random's threefry draws, bit-exact), ``ops.*`` (plain torch twins of
+the JAX ops), ``ops.augment`` and ``ops.rotate`` (the wrappers around the
+hand-written CUDA kernels in ``csrc/``), ``kernels`` (nvcc build and ctypes
+binding), ``models.chains`` (the flagship chain as an ``nn.Module``),
+``utils`` and ``interop`` (carries the JAX package's draws across).
 
-This slice ports the flagship augment chain only; the engine
-(``ProcessingPipeline``) is not ported yet, so nothing is imported here.
+Steps compute on ``device="cuda"`` unless told ``device="cpu"``.  Not ported
+yet: the device JPEG codec, the native C++ twins, step fusion, the other
+transforms, meshes, the CLI and ``config``.
 """
+
+from image_processor_pipeline_tpu_torch.pipeline import ProcessingPipeline, ProcessingStep
+from image_processor_pipeline_tpu_torch.pairing import MODES
 
 __version__ = "0.1.0"
 
-__all__ = ["__version__"]
+__all__ = ["ProcessingPipeline", "ProcessingStep", "MODES", "__version__"]

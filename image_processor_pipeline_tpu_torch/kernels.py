@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("augment_full.cu", "shear_rotate.cu")
+SOURCES = ("augment_full.cu", "shear_rotate.cu", "rev_probe.cu")
 _SO = BUILD / "libipp_cuda.so"
 
 # sm_90a (Hopper); --fmad=false keeps every multiply and add separately
@@ -38,10 +38,12 @@ NVCC_FLAGS = (
 
 # one entry per kernel path, named after the TPU kernel it replaces:
 # augment_full (_augment_full_kernel), augment_fused (_augment_kernel),
-# shear_rotate_packed (_shear_kernel_packed, C in {3, 4}) and shear_rotate
-# (_shear_kernel, any other C)
+# shear_rotate_packed (_shear_kernel_packed, C in {3, 4}), shear_rotate
+# (_shear_kernel, any other C) and rev_probe (the four probe kernels of
+# benchmarks/rev_probe.py)
 launch_counts = {"augment_full": 0, "augment_fused": 0,
-                 "shear_rotate_packed": 0, "shear_rotate": 0}
+                 "shear_rotate_packed": 0, "shear_rotate": 0,
+                 "rev_probe": 0}
 # an int32 [1] tensor on the card, or None: while it is set, the shear
 # kernel adds one to it for each tile it gathers straight from device
 # memory instead of from its shared-memory window (csrc/shear_rotate.cu)
@@ -128,9 +130,10 @@ def library() -> ctypes.CDLL:
             lib.ipp_augment_full.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
             lib.ipp_augment_max_active_clusters.argtypes = [i32] * 3 + [ptr]
             lib.ipp_shear_rotate.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+            lib.ipp_rev_probe.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
             for fn in (lib.ipp_augment_full,
                        lib.ipp_augment_max_active_clusters,
-                       lib.ipp_shear_rotate):
+                       lib.ipp_shear_rotate, lib.ipp_rev_probe):
                 fn.restype = i32
             lib.ipp_cuda_error_string.argtypes = [i32]
             lib.ipp_cuda_error_string.restype = ctypes.c_char_p

@@ -1,9 +1,14 @@
-"""Geometric ops of the flagship chain (twin of
-image_processor_pipeline_tpu/ops/geometry.py:32-43, 615-744).
+"""Geometric ops on padded images (twin of
+image_processor_pipeline_tpu/ops/geometry.py:32-246, 347-348, 615-744).
 
-Images are batched ``[B, H, W, C]`` tensors and per-item parameters are
-``[B]`` or ``[B, N]`` tensors on the same device: the batch axis written out
-where the JAX package vmaps a per-image function.
+Representation: a padded canvas ``[B, H, W, C]`` holding, per item, a valid
+region ``[0:h, 0:w]``.  Invariant maintained by every op here: pixels
+outside the valid region are 0.  Per-item parameters are ``[B]`` or
+``[B, N]`` tensors on the images' device (python numbers broadcast): the
+batch axis written out where the JAX package vmaps a per-image function.
+
+``rotate_expand`` samples nearest only; the JAX package's bilinear and
+double-double forms are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +28,246 @@ def valid_mask(h, w, H: int, W: int, device=None):
     iy = torch.arange(H, dtype=torch.int32, device=device)[:, None]
     ix = torch.arange(W, dtype=torch.int32, device=device)[None, :]
     return (iy < h) & (ix < w)
+
+
+def _per_item(v, B: int, device, dtype=torch.int32):
+    """``v`` (a number or a [B] tensor) as a [B] tensor on ``device``."""
+    return torch.as_tensor(v, device=device).to(dtype).expand(B)
+
+
+def apply_mask(img, h, w):
+    """Zero pixels outside each item's valid region [0:h, 0:w]."""
+    B, H, W, _ = img.shape
+    h = _per_item(h, B, img.device).view(B, 1, 1)
+    w = _per_item(w, B, img.device).view(B, 1, 1)
+    m = valid_mask(h, w, H, W, device=img.device)
+    return torch.where(m[..., None], img,
+                       torch.zeros((), dtype=img.dtype, device=img.device))
+
+
+def _gather2(img, rows, cols):
+    """out[b, y, x] = img[b, rows[b, y], cols[b, x]]; rows [B, H'] and cols
+    [B, W'] hold indices into the canvas."""
+    b = torch.arange(img.shape[0], device=img.device)[:, None, None]
+    return img[b, rows[:, :, None].long(), cols[:, None, :].long()]
+
+
+def roll2(img, dy, dx):
+    """Circular shift of each item by its own (dy, dx) along (H, W):
+    ``jnp.roll(img, (dy, dx), axis=(0, 1))`` vmapped over the batch."""
+    B, H, W, _ = img.shape
+    dy = _per_item(dy, B, img.device)
+    dx = _per_item(dx, B, img.device)
+    iy = torch.arange(H, dtype=torch.int32, device=img.device)
+    ix = torch.arange(W, dtype=torch.int32, device=img.device)
+    return _gather2(img, torch.remainder(iy[None, :] - dy[:, None], H),
+                    torch.remainder(ix[None, :] - dx[:, None], W))
+
+
+# ---------------------------------------------------------------------------
+# dihedral flips (cv2.flip semantics: 1=horizontal/x, 0=vertical/y, -1=both)
+# ---------------------------------------------------------------------------
+
+def _flip(img, h, w, flip_y: bool, flip_x: bool):
+    """Mirror each item's valid region in place: the JAX package's flip of
+    the canvas followed by a roll back to the origin, as one gather."""
+    B, H, W, _ = img.shape
+    iy = torch.arange(H, dtype=torch.int32, device=img.device)[None, :]
+    ix = torch.arange(W, dtype=torch.int32, device=img.device)[None, :]
+    rows, cols = iy.expand(B, H), ix.expand(B, W)
+    if flip_y:
+        h = _per_item(h, B, img.device)
+        rows = torch.remainder(h[:, None] - 1 - iy, H)
+    if flip_x:
+        w = _per_item(w, B, img.device)
+        cols = torch.remainder(w[:, None] - 1 - ix, W)
+    return _gather2(img, rows, cols)
+
+
+def flip_h(img, h, w):
+    """Horizontal mirror (flip around the vertical axis), size-preserving."""
+    return _flip(img, h, w, False, True)
+
+
+def flip_v(img, h, w):
+    """Vertical mirror (flip around the horizontal axis), size-preserving."""
+    return _flip(img, h, w, True, False)
+
+
+def flip_hv(img, h, w):
+    """180° rotation (both flips)."""
+    return _flip(img, h, w, True, True)
+
+
+def dihedral(img, h, w, sym: str):
+    """Apply one of the reference's symmetry generators 'o'/'h'/'v'/'hv'
+    (reference symmetry.py:114-119)."""
+    if sym == "o":
+        return img
+    if sym == "h":
+        return flip_h(img, h, w)
+    if sym == "v":
+        return flip_v(img, h, w)
+    if sym == "hv":
+        return flip_hv(img, h, w)
+    raise ValueError(f"unknown symmetry {sym!r}")
+
+
+# ---------------------------------------------------------------------------
+# crops
+# ---------------------------------------------------------------------------
+
+def crop(img, y0, x0, ch, cw):
+    """Move each item's window [y0:y0+ch, x0:x0+cw] to the canvas origin.
+
+    The window must lie inside the valid region (callers guarantee this).
+    A circular roll by the item's own offsets (no wraparound can reach the
+    new valid region because y0+ch <= h <= H), then a mask.
+    """
+    B = img.shape[0]
+    y0 = _per_item(y0, B, img.device)
+    x0 = _per_item(x0, B, img.device)
+    return apply_mask(roll2(img, -y0, -x0), ch, cw)
+
+
+def content_bbox(img, h, w):
+    """Tight bbox (y0, x0, bh, bw), each [B] int32, of each item's content.
+
+    Parity: PIL Image.getbbox() (Pillow >= 10, ``alpha_only=True``): on a
+    4-channel image only the alpha plane counts; on 1/3 channels any
+    nonzero channel does.  (0, 0, 0, 0) for an all-zero (or fully
+    transparent RGBA) item.
+    """
+    B, H, W, C = img.shape
+    hv = _per_item(h, B, img.device).view(B, 1, 1)
+    wv = _per_item(w, B, img.device).view(B, 1, 1)
+    inside = valid_mask(hv, wv, H, W, device=img.device)
+    if C == 4:
+        nz = (img[..., 3] != 0) & inside
+    else:
+        nz = (img != 0).any(dim=-1) & inside
+    rows = nz.any(dim=2)
+    cols = nz.any(dim=1)
+    iy = torch.arange(H, dtype=torch.int32, device=img.device)
+    ix = torch.arange(W, dtype=torch.int32, device=img.device)
+    big = 1 << 30
+    y0 = torch.where(rows, iy, big).amin(dim=1)
+    y1 = torch.where(rows, iy, -1).amax(dim=1)
+    x0 = torch.where(cols, ix, big).amin(dim=1)
+    x1 = torch.where(cols, ix, -1).amax(dim=1)
+    any_nz = rows.any(dim=1)
+    zero = torch.zeros((), dtype=torch.int32, device=img.device)
+    y0 = torch.where(any_nz, y0, zero)
+    x0 = torch.where(any_nz, x0, zero)
+    bh = torch.where(any_nz, y1 - y0 + 1, zero)
+    bw = torch.where(any_nz, x1 - x0 + 1, zero)
+    return y0, x0, bh, bw
+
+
+def fit_crop(img, h, w):
+    """Tight-crop each item to its content bbox; returns (img, bh, bw).
+
+    An EMPTY bbox (getbbox() None in PIL — e.g. a fully transparent RGBA
+    image) keeps the item UNCROPPED at its extent (h, w), clamped at 0 for
+    a degenerate (negative) extent handed down by an upstream stage: the
+    reference never emits a 0x0 output.
+    """
+    B = img.shape[0]
+    y0, x0, bh, bw = content_bbox(img, h, w)
+    empty = bh == 0
+    hj = _per_item(h, B, img.device).clamp(min=0)
+    wj = _per_item(w, B, img.device).clamp(min=0)
+    bh = torch.where(empty, hj, bh)
+    bw = torch.where(empty, wj, bw)
+    zero = torch.zeros((), dtype=torch.int32, device=img.device)
+    y0 = torch.where(empty, zero, y0)
+    x0 = torch.where(empty, zero, x0)
+    return crop(img, y0, x0, bh, bw), bh, bw
+
+
+# ---------------------------------------------------------------------------
+# arbitrary-angle rotation with expand (PIL semantics)
+# ---------------------------------------------------------------------------
+
+def _expand_extents(h, w, angle_deg):
+    """(cos, sin, hf, wf, ex, ey) of the PIL expand box, float32, in the
+    JAX function's operation order."""
+    theta = torch.as_tensor(angle_deg).to(torch.float32) * _DEG2RAD
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    c, s = cos.abs(), sin.abs()
+    hf = torch.as_tensor(h, device=theta.device).to(torch.float32)
+    wf = torch.as_tensor(w, device=theta.device).to(torch.float32)
+    ex = (wf * c + hf * s) / 2
+    ey = (wf * s + hf * c) / 2
+    return cos, sin, hf, wf, ex, ey
+
+
+_EXPAND_EPS = 1e-4
+
+
+def rotated_size(h, w, angle_deg):
+    """Expanded canvas extents (h2, w2), int32, after rotating (h, w) by
+    angle (degrees CCW); all three broadcast.
+
+    Mirrors PIL's expand box (Image.rotate): transform the four corners
+    around the center (w/2, h/2), then size = ceil(max) - floor(min) per
+    axis.  A small epsilon snaps exact multiples of 90°.
+    """
+    _, _, hf, wf, ex, ey = _expand_extents(h, w, angle_deg)
+    cx = wf / 2
+    cy = hf / 2
+    eps = _EXPAND_EPS
+    w2 = (torch.ceil(cx + ex - eps) - torch.floor(cx - ex + eps)).to(torch.int32)
+    h2 = (torch.ceil(cy + ey - eps) - torch.floor(cy - ey + eps)).to(torch.int32)
+    return h2, w2
+
+
+def rotate_expand(img, h, w, angle_deg, interpolation: str = "nearest"):
+    """Rotate each item CCW by its ``angle_deg`` with canvas expansion, fill
+    transparent (PIL Image.rotate(angle, expand=True), nearest sampling).
+
+    img [B, H, W, C]; h, w, angle_deg [B].  The rotated content lands at
+    the canvas origin with new extents (h2, w2) [B] int32.  Outside pixels
+    are 0.  Returns (out_img, h2, w2).
+    """
+    if interpolation != "nearest":
+        raise NotImplementedError(
+            f"interpolation {interpolation!r}: this port samples nearest "
+            "only")
+    B, H, W, C = img.shape
+    dev = img.device
+    h = _per_item(h, B, dev)
+    w = _per_item(w, B, dev)
+    angle_deg = _per_item(angle_deg, B, dev, torch.float32)
+    cos, sin, hf, wf, ex, ey = (
+        t.view(B, 1, 1) for t in _expand_extents(h, w, angle_deg))
+    h2, w2 = rotated_size(h, w, angle_deg)
+
+    cy_in = hf / 2
+    cx_in = wf / 2
+    # PIL places the output origin at floor(min corner coordinate), not at
+    # a center-to-center alignment — keep the same subpixel offset.
+    tx = torch.floor(cx_in - ex + _EXPAND_EPS)
+    ty = torch.floor(cy_in - ey + _EXPAND_EPS)
+
+    # output pixel centers in the pre-shift frame
+    iy = torch.arange(H, dtype=torch.float32, device=dev).view(1, H, 1)
+    ix = torch.arange(W, dtype=torch.float32, device=dev).view(1, 1, W)
+    dy = (iy + 0.5 + ty) - cy_in
+    dx = (ix + 0.5 + tx) - cx_in
+    # inverse map of a visual-CCW rotation (image y axis points down)
+    sx = cos * dx - sin * dy + cx_in
+    sy = sin * dx + cos * dy + cy_in
+
+    inb = (sx >= 0) & (sx < wf) & (sy >= 0) & (sy < hf)
+    ixc = torch.floor(sx).to(torch.int32).clamp(0, W - 1)
+    iyc = torch.floor(sy).to(torch.int32).clamp(0, H - 1)
+    flat = img.reshape(B, H * W, C)
+    index = (iyc * W + ixc).reshape(B, H * W, 1).long().expand(B, H * W, C)
+    out = torch.gather(flat, 1, index).reshape(B, H, W, C)
+    out = torch.where(inb[..., None], out,
+                      torch.zeros((), dtype=img.dtype, device=dev))
+    return apply_mask(out, h2, w2), h2, w2
 
 
 def shift_bits_for(size: int) -> int:

@@ -258,3 +258,158 @@ def test_chain_modes_through_kernels_on_card(cuda_device, mode, twin,
     want = chains.augment_chain(images, xywhn, seeds, rotation=twin)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# -- the probe kernel (csrc/rev_probe.cu) -------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 512), (37, 101), (1, 4), (5, 1),
+                                   (64, 1028), (2051, 12)])
+@pytest.mark.parametrize("name", ["copy", "roll", "rev_cols", "rev_rows"])
+def test_rev_probe_matches_plain_on_card(cuda_device, name, shape):
+    """Byte for byte against torch.flip / torch.roll / clone, on shapes
+    that take the 16-byte vectors and shapes that take single words."""
+    from image_processor_pipeline_tpu_torch.utils import rev_probe
+
+    rng = np.random.default_rng(shape[0] + shape[1])
+    x = torch.as_tensor(rng.integers(-2**31, 2**31, shape,
+                                     dtype=np.int64).astype(np.int32),
+                        device=cuda_device)
+    for shift in ((7, 0, -5, shape[1] + 3) if name == "roll" else (7,)):
+        kernels.reset_launch_counts()
+        got = rev_probe.move(x, name, shift)
+        assert kernels.launch_counts["rev_probe"] == 1
+        want = rev_probe.plain_move(x, name, shift)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert got.data_ptr() != x.data_ptr()
+
+
+@pytest.mark.cuda
+def test_rev_probe_unaligned_rows_take_the_word_path(cuda_device):
+    """A block that starts 4 bytes into an allocation is not 16-byte
+    aligned: the same results through the word kernels."""
+    from image_processor_pipeline_tpu_torch.utils import rev_probe
+
+    base = torch.arange(1 + 64 * 64, dtype=torch.int32, device=cuda_device)
+    x = base[1:].view(64, 64)
+    assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    for name in rev_probe.MOVES:
+        got = rev_probe.move(x, name)
+        torch.cuda.synchronize()
+        assert torch.equal(got, rev_probe.plain_move(x, name))
+
+
+# -- the engine's steps on the card ---------------------------------------------
+
+def _engine_dataset(root, n=12):
+    from torch_port_data import make_dataset
+
+    return make_dataset(root / "data", n, seed=17,
+                        sizes=((60, 90), (90, 60), (72, 72), (50, 150)))
+
+
+def _decoded(directory):
+    from PIL import Image
+
+    return {p.name: np.asarray(Image.open(p)) if p.suffix == ".png"
+            else p.read_text() for p in sorted(directory.iterdir())}
+
+
+def _run_steps(root, imgs, labels, device):
+    from image_processor_pipeline_tpu_torch import ProcessingStep
+    from image_processor_pipeline_tpu_torch.transforms import (
+        GenerateSymmetries, RandomRotations, SquareCropAroundBBox)
+
+    crop = ProcessingStep(
+        "crop", SquareCropAroundBBox(), input_dirs=[imgs, labels],
+        output_dirs=[root / "crops", root / "labels"], pairing_method="zip",
+        seed=3, workers=2, device=device)
+    rot = ProcessingStep(
+        "rot", RandomRotations(), input_dirs=[root / "crops"],
+        output_dirs=[root / "rot"], seed=4, workers=2, device=device,
+        options={"num_rotations": 3, "method": "shear"})
+    sym = ProcessingStep(
+        "sym", GenerateSymmetries(), input_dirs=[root / "rot"],
+        output_dirs=[root / "sym"], seed=5, workers=2, device=device)
+    counts = [step.run(progress=False) for step in (crop, rot, sym)]
+    return counts, rot
+
+
+@pytest.mark.cuda
+def test_engine_steps_on_card_launch_the_kernel_and_match_the_plain_twin(
+        cuda_device, tmp_path, monkeypatch):
+    """crop_square, rotations (method shear) and symmetry over a directory
+    of PNGs on the card: every item Success, the rotation kernel launched
+    once a batch, and every file equal to a second run in which the plain
+    twin (geometry.rotate_square_shear_by on the card, the same shift
+    vectors) stands in the kernel's place."""
+    from image_processor_pipeline_tpu_torch.transforms import rotations
+
+    imgs, labels = _engine_dataset(tmp_path)
+    kernels.reset_launch_counts()
+    counts, rot = _run_steps(tmp_path / "kernel", imgs, labels, cuda_device)
+    assert [dict(c) for c in counts] == [{"Success": 12}, {"Success": 12},
+                                         {"Success": 48}]
+    assert kernels.launch_counts["shear_rotate_packed"] == \
+        rot.metrics.batches >= 2
+
+    def plain_batch(images, angles, shifts=None):
+        return geometry.rotate_square_shear_by(
+            images, *geometry.shear_params(angles, images.shape[1]))
+
+    monkeypatch.setattr(rotations.rotate_ops, "rotate_square_shear_batch",
+                        plain_batch)
+    kernels.reset_launch_counts()
+    _run_steps(tmp_path / "plain", imgs, labels, cuda_device)
+    assert kernels.launch_counts["shear_rotate_packed"] == 0
+    for d in ("crops", "labels", "rot", "sym"):
+        got = _decoded(tmp_path / "kernel" / d)
+        want = _decoded(tmp_path / "plain" / d)
+        assert sorted(got) == sorted(want) and len(got) > 0
+        for name in got:
+            assert np.array_equal(got[name], want[name]), (d, name)
+
+
+@pytest.mark.cuda
+def test_crop_and_symmetry_on_card_match_the_cpu(cuda_device, tmp_path):
+    """No trigonometry in these two steps: the card's files equal the
+    CPU's exactly."""
+    from image_processor_pipeline_tpu_torch import ProcessingStep
+    from image_processor_pipeline_tpu_torch.transforms import (
+        GenerateSymmetries, SquareCropAroundBBox)
+
+    imgs, labels = _engine_dataset(tmp_path)
+    for device in ("cpu", cuda_device):
+        root = tmp_path / str(device).replace(":", "_")
+        ProcessingStep("crop", SquareCropAroundBBox(),
+                       input_dirs=[imgs, labels],
+                       output_dirs=[root / "crops", root / "labels"],
+                       pairing_method="zip", seed=3,
+                       device=device).run(progress=False)
+        ProcessingStep("sym", GenerateSymmetries(), input_dirs=[imgs],
+                       output_dirs=[root / "sym"], seed=5,
+                       device=device).run(progress=False)
+    for d in ("crops", "labels", "sym"):
+        got = _decoded(tmp_path / "cuda_0" / d)
+        want = _decoded(tmp_path / "cpu" / d)
+        assert sorted(got) == sorted(want) and len(got) >= 12
+        for name in got:
+            assert np.array_equal(got[name], want[name]), (d, name)
+
+
+@pytest.mark.cuda
+def test_host_buffers_are_pinned_for_the_card(cuda_device):
+    from image_processor_pipeline_tpu_torch.transforms.base import (
+        BatchTransform, host_zeros, to_device)
+
+    a = host_zeros((4, 8, 8, 3), cuda_device)
+    assert torch.from_numpy(a).is_pinned() and not a.any()
+    a[...] = 7
+    t = to_device(a, cuda_device)
+    out = {"x": t, "_stash": t, "n": torch.arange(4)}
+    BatchTransform.start_host_copy(out)
+    items = BatchTransform.materialize_batch(out, 3)
+    assert len(items) == 3 and sorted(items[0]) == ["n", "x"]
+    assert (items[2]["x"] == 7).all() and items[2]["n"] == 2
+    assert out["_host_copy"][0]["x"].is_pinned()

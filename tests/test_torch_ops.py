@@ -178,3 +178,139 @@ def test_shear_params_within_f1_bound():
     assert max(d1.max(), d2.max()) <= 1
     differ = ((d1 > 0).any(1) | (d2 > 0).any(1)).mean()
     assert differ <= 1e-3, differ
+
+
+# -- the engine steps' ops: bbox, geometry on padded canvases, draws ---------
+
+def _boxes(seed, B=64, N=8):
+    rng = np.random.default_rng(seed)
+    xyxy = rng.uniform(-50, 700, (B, N, 4)).astype(np.float32)
+    mask = rng.random((B, N)) < 0.6
+    mask[0] = False
+    return xyxy, mask
+
+
+def test_union_shift_clip_boxes_match_jax():
+    xyxy, mask = _boxes(0)
+    np.testing.assert_array_equal(
+        tbbox.union_box(_t(xyxy), _t(mask)).numpy(),
+        np.asarray(jbbox.union_box(xyxy, mask)))
+    np.testing.assert_array_equal(
+        tbbox.union_box(_t(xyxy)).numpy(), np.asarray(jbbox.union_box(xyxy)))
+    dx = np.arange(64, dtype=np.float32) * 3
+    dy = np.arange(64, dtype=np.float32) - 7
+    want = jax.vmap(jbbox.shift_boxes)(xyxy, dx, dy)
+    got = tbbox.shift_boxes(_t(xyxy), _t(dx), _t(dy))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    side = np.linspace(40, 640, 64).astype(np.float32)
+    want = jax.vmap(lambda b, s: jbbox.clip_boxes(b, (s, s + 5)))(xyxy, side)
+    got = tbbox.clip_boxes(_t(xyxy), (_t(side)[:, None],
+                                      _t(side)[:, None] + 5))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        tbbox.clip_boxes(_t(xyxy), (480, 640)).numpy(),
+        np.asarray(jbbox.clip_boxes(xyxy, (480, 640))))
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_xyxy2xywhn_matches_jax(clip):
+    xyxy, _ = _boxes(1)
+    w = np.linspace(33, 641, 64).astype(np.float32)
+    h = np.linspace(480, 31, 64).astype(np.float32)
+    with jax.disable_jit():
+        want = jax.vmap(lambda b, ww, hh: jbbox.xyxy2xywhn(
+            b, ww, hh, clip=clip, eps=1e-3))(xyxy, w, h)
+    got = tbbox.xyxy2xywhn(_t(xyxy), _t(w)[:, None], _t(h)[:, None],
+                           clip=clip, eps=1e-3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _canvases(seed, B, H, W, C):
+    rng = np.random.default_rng(seed)
+    hs = rng.integers(1, H + 1, B).astype(np.int32)
+    ws = rng.integers(1, W + 1, B).astype(np.int32)
+    img = rng.integers(0, 256, (B, H, W, C), np.uint8)
+    img = np.array(jax.vmap(jgeo.apply_mask)(jnp.asarray(img), hs, ws))
+    return img, hs, ws
+
+
+@pytest.mark.parametrize("C", [1, 3, 4])
+def test_apply_mask_and_flips_match_jax(C):
+    rng = np.random.default_rng(C)
+    raw = rng.integers(0, 256, (7, 40, 56, C), np.uint8)
+    hs = np.asarray([1, 40, 17, 39, 2, 25, 40], np.int32)
+    ws = np.asarray([56, 1, 30, 55, 2, 56, 41], np.int32)
+    masked = tgeo.apply_mask(_t(raw), _t(hs), _t(ws)).numpy()
+    np.testing.assert_array_equal(
+        masked, np.asarray(jax.vmap(jgeo.apply_mask)(raw, hs, ws)))
+    np.testing.assert_array_equal(
+        tgeo.apply_mask(_t(raw), 20, 30).numpy(),
+        np.asarray(jgeo.apply_mask(raw, 20, 30)))
+    for sym in ("o", "h", "v", "hv"):
+        want = jax.vmap(lambda i, h, w: jgeo.dihedral(i, h, w, sym))(
+            masked, hs, ws)
+        got = tgeo.dihedral(_t(masked), _t(hs), _t(ws), sym)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), sym)
+    with pytest.raises(ValueError, match="symmetry"):
+        tgeo.dihedral(_t(masked), _t(hs), _t(ws), "d")
+
+
+def test_roll2_matches_jnp_roll_per_item():
+    img, _, _ = _canvases(3, 5, 24, 36, 3)
+    dy = np.asarray([0, 5, -7, 23, 100], np.int32)
+    dx = np.asarray([-1, 0, 36, 17, -90], np.int32)
+    want = jax.vmap(lambda i, a, b: jnp.roll(i, (a, b), axis=(0, 1)))(
+        img, dy, dx)
+    np.testing.assert_array_equal(
+        tgeo.roll2(_t(img), _t(dy), _t(dx)).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("C", [1, 3, 4])
+def test_crop_bbox_and_fit_crop_match_jax(C):
+    """Random content with sparse alpha; item 0 empty (the uncropped
+    rule), item 1 with a negative extent (the clamp)."""
+    img, hs, ws = _canvases(10 + C, 8, 48, 64, C)
+    rng = np.random.default_rng(C)
+    keep = rng.random(img.shape[:3]) < 0.05
+    img *= keep[..., None]
+    img[0] = 0
+    y0 = rng.integers(0, 6, 8).astype(np.int32)
+    x0 = rng.integers(0, 6, 8).astype(np.int32)
+    want = jax.vmap(jgeo.crop)(img, y0, x0, hs - 6, ws - 6)
+    got = tgeo.crop(_t(img), _t(y0), _t(x0), _t(hs) - 6, _t(ws) - 6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for fn in ("content_bbox", "fit_crop"):
+        want = jax.vmap(getattr(jgeo, fn))(img, hs, ws)
+        got = getattr(tgeo, fn)(_t(img), _t(hs), _t(ws))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 or g.dtype == torch.uint8
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), fn)
+    empty = np.zeros((2, 48, 64, C), np.uint8)
+    ext_h, ext_w = np.asarray([30, -4], np.int32), np.asarray([20, 9], np.int32)
+    want = jax.vmap(jgeo.fit_crop)(empty, ext_h, ext_w)
+    got = tgeo.fit_crop(_t(empty), _t(ext_h), _t(ext_w))
+    assert got[1].tolist() == [30, 0] and got[2].tolist() == [20, 9]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("angle", [0.0, 90.0, 180.0, 270.0, 360.0, 45.0,
+                                   30.0, 123.4, 359.0])
+def test_rotate_expand_nearest_matches_jax_eager(angle):
+    """Sizes exact; pixels byte for byte (torch's and XLA's float32 cos and
+    sin agree bitwise on each of these angles)."""
+    img, hs, ws = _canvases(int(angle), 4, 64, 64, 4)
+    hs, ws = np.minimum(hs, 40), np.minimum(ws, 44)
+    img = np.array(jax.vmap(jgeo.apply_mask)(jnp.asarray(img), hs, ws))
+    angles = np.full(4, angle, np.float32)
+    theta = jnp.deg2rad(jnp.float32(angle))
+    t = torch.tensor(angle) * tgeo._DEG2RAD
+    assert float(jnp.cos(theta)) == float(torch.cos(t))
+    assert float(jnp.sin(theta)) == float(torch.sin(t))
+    with jax.disable_jit():
+        want = jax.vmap(jgeo.rotate_expand)(img, hs, ws, angles)
+    got = tgeo.rotate_expand(_t(img), _t(hs), _t(ws), _t(angles))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    h2, w2 = tgeo.rotated_size(_t(hs), _t(ws), _t(angles))
+    assert h2.tolist() == got[1].tolist() and w2.tolist() == got[2].tolist()

@@ -100,3 +100,37 @@ def test_flip_and_params_match_jax():
     np.testing.assert_array_equal(got_f, np.asarray(want_f))
     np.testing.assert_array_equal(got_p.view(np.uint32),
                                   np.asarray(want_p).view(np.uint32))
+
+
+@pytest.mark.parametrize("n,lo,hi", [(10, 1.0, 359.0), (4, 1.0, 359.0),
+                                     (7, -45.0, 45.0)])
+def test_uniform_vector_per_key_matches_jax(jkeys, n, lo, hi):
+    """uniform(key, (n,), lo, hi) for each key, as the rotations step draws
+    its angles: bit for bit against the jitted jax.random.uniform."""
+    want = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.uniform(
+        k, (n,), minval=lo, maxval=hi)))(jkeys))
+    got = trandom.uniform(jkeys, (n,), lo, hi)
+    assert got.shape == (len(SEEDS), n) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_randint_with_per_item_bounds_after_split_matches_jax(jkeys):
+    """The square crop's placement draws: split, then randint with each
+    item's own inclusive bounds, empty ranges guarded to their lower
+    bound."""
+    rng = np.random.default_rng(11)
+    lo = rng.integers(0, 300, len(SEEDS)).astype(np.int32)
+    hi = lo + rng.integers(-40, 200, len(SEEDS)).astype(np.int32)
+
+    def draw(key, a, b):
+        kx, ky = jax.random.split(key)
+        return (jax.random.randint(kx, (), a, jnp.maximum(b, a) + 1),
+                jax.random.randint(ky, (), a, jnp.maximum(b, a) + 1))
+
+    wx, wy = jax.jit(jax.vmap(draw))(jkeys, lo, hi)
+    keys = trandom.split(jkeys)
+    top = np.maximum(hi, lo) + 1
+    np.testing.assert_array_equal(
+        trandom.randint(keys[:, 0], (), lo, top), np.asarray(wx))
+    np.testing.assert_array_equal(
+        trandom.randint(keys[:, 1], (), lo, top), np.asarray(wy))
