@@ -20,16 +20,25 @@ and the chains with CUDA events, profiles one launch of each kernel and
 the chains' device work, counts
 how often the card's float32 tan/sin move a shift vector against the
 CPU's, holds the probe kernel's four moves (utils/rev_probe.py) against
-torch.flip, torch.roll and clone and drives the probe's own entry point,
+torch.flip, torch.roll and clone, drives the probe's own entry point and
+times a kernel that does nothing (the launch-alone floor under the moves),
 and drives the engine: over a dataset of 640 x 480 PNGs with YOLO labels
 made from a seed in a temporary directory, ProcessingPipeline A
 (SquareCropAroundBBox, then copy_img_with_labels) and B (RandomRotations
 with method="shear", which launches the rotation kernel, then
 GenerateSymmetries), all on the card, with every item's status, the file
 counts, each crop against its source window, one rotation batch against
-the plain twin, the kernel's launches and the step's idle share checked
-or printed.  It prints the card's name and power limit, a JSON line of the
-kernels and, last, a JSON status line.  Any failed phase raises, so the
+the plain twin and against the same batch on the CPU, the kernel's
+launches and the step's idle share checked or printed; then, over 64 of
+A's crops, pipelines C (ColorMaskTransparency, then KeepLargestComponent:
+BASELINE.json's config 3), D (one FusedChain step of Rotate with
+method="shear", Flip, ColorMask, Cleanup and Enhance, which launches the
+rotation kernel once a batch) and E (EnhanceImage, BorderCrop, FitCrop
+over JPEG copies of the crops), with one batch of every new step held
+byte for byte against the same batch on the CPU, D's batch against the
+plain twin in the kernel's place, and the connected-component sweeps and
+host read-backs a batch printed.  It prints the card's name and power
+limit, a JSON line of the kernels and, last, a JSON status line.  Any failed phase raises, so the
 status line is printed only when every phase passed.  Without a CUDA card
 it exits non-zero.
 """
@@ -68,6 +77,14 @@ BATCHES = (8, 64)
 ENGINE_IMAGES = 128
 ENGINE_H, ENGINE_W = 480, 640
 ENGINE_ROTATIONS = 4
+# the symmetry step takes this many of the 640 rotation files (all of them
+# took 46 s, nearly all of it PNG encoding), and pipelines C, D and E this
+# many of the 128 crops
+ENGINE_SYMMETRY_ITEMS = 160
+ENGINE_STEP_ITEMS = 64
+# two HSV ranges (OpenCV scale) that mask a real share of the dataset's
+# gradients: the dark pixels and the green hues
+ENGINE_MASK_RANGES = [(0, 0, 0, 180, 255, 110), (35, 60, 60, 85, 255, 255)]
 
 
 def kernel_inputs(SIN, S, B, seed, dev):
@@ -171,6 +188,27 @@ def drive(kernels, expected, fn):
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     return result, counts
+
+
+def count_direct_tiles(kernels, dev, fn):
+    """(fn(), the rotation kernel's tiles that gathered from device memory
+    meanwhile): kernels.direct_tiles is set for the call."""
+    kernels.direct_tiles = torch.zeros(1, dtype=torch.int32, device=dev)
+    try:
+        out = fn()
+        return out, int(kernels.direct_tiles)
+    finally:
+        kernels.direct_tiles = None
+
+
+def plain_rotate_batch(images, angles, shifts=None):
+    """rotate_square_shear_batch's contract through the plain version, to
+    put in the kernel wrapper's place."""
+    from image_processor_pipeline_tpu_torch.ops import geometry
+
+    if shifts is None:
+        shifts = geometry.shear_params(angles, images.shape[1])
+    return geometry.rotate_square_shear_by(images, *shifts)
 
 
 def shift_vector_deltas(geometry, dev, n=200_000, S=512, chunk=20_000):
@@ -316,6 +354,273 @@ def count_files(directory, n, what):
     return found
 
 
+def save_as_jpg(path, output_dirs, **options):
+    """Host step: one image file written again as a JPEG of the same stem
+    (the border crop takes JPEG files only)."""
+    from PIL import Image
+
+    out = Path(output_dirs[0]) / f"{Path(path).stem}.jpg"
+    with Image.open(path) as im:
+        im.convert("RGB").save(out, quality=95)
+    return out
+
+
+def one_batch(transform, inputs, options, seed, device):
+    """The outputs of one batch of ``transform`` on ``device``, on the
+    host: ``inputs`` are the items' argument tuples (one bucket), item i
+    gets the seed the engine would give it, ``seed`` + i."""
+    chunk = [transform.load_item(args, options) for args in inputs]
+    for i, item in enumerate(chunk):
+        item["_seed"] = (seed + i) & 0x7FFFFFFF
+    key = transform.bucket_key(chunk[0], options)
+    out = transform.launch_batch(key, chunk, options, device)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def check_batches_equal(got, ref, what):
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"{what}: outputs {sorted(got)} != {sorted(ref)}")
+    for k in ref:
+        check_equal(got[k], ref[k], f"{what}[{k!r}]")
+
+
+def profiled_step(run):
+    """Run ``run()`` under the profiler; returns the device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def idle_line(step, events, card):
+    busy = busy_ms(events)
+    wall = step.metrics.wall_seconds * 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = (by_name.get(e.name, 0)
+                           + e.time_range.elapsed_us() / 1e3)
+    top = sorted(((name[:48], ms) for name, ms in by_name.items()),
+                 key=lambda kv: -kv[1])[:5]
+    return (f"profiler, engine step {step.name}: wall {wall:.1f} ms, device "
+            f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f}; largest "
+            + ", ".join(f"{name} {ms:.1f}" for name, ms in top)
+            + f"; card {card}"), by_name
+
+
+def mask_chain_crop_pipelines(root, dev, card, workers, launches):
+    """The engine's pipelines C, D and E on ``dev`` over ENGINE_STEP_ITEMS
+    of pipeline A's crops under ``root``, with their checks; adds pipeline
+    D's launches of the rotation kernel to ``launches`` and returns the
+    kernel's measurements at the Rotate stage's shape."""
+    from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
+                                                    ProcessingStep, kernels)
+    from image_processor_pipeline_tpu_torch.ops import ccl, geometry, rotate
+    from image_processor_pipeline_tpu_torch.transforms import (
+        BorderCrop, ColorMaskTransparency, EnhanceImage, FitCrop,
+        FusedChain, KeepLargestComponent, fused)
+
+    k = ENGINE_STEP_ITEMS
+    crops_dir = root / "A" / "crops" / "imgs"
+    mask_options = {"color_ranges_to_exclude_hsv": ENGINE_MASK_RANGES}
+    clean_options = {"min_component_size": 500}
+    border_options = {"crop_margins": (0.1, 24, 0.05, 12)}
+    chain = FusedChain([
+        fused.Rotate(method="shear"), fused.Flip(),
+        fused.ColorMask(ENGINE_MASK_RANGES), fused.Cleanup(),
+        fused.Enhance()])
+    common = {"workers": workers, "save_log": True}
+    pipe_c = ProcessingPipeline(root_dir=root / "C")
+    pipe_c.add_step(ProcessingStep(
+        "color_mask", ColorMaskTransparency(), input_dirs=[crops_dir],
+        output_dirs=["mask"], seed=21, sample_k=k, options=mask_options,
+        device=dev, **common))
+    pipe_c.add_step(ProcessingStep(
+        "cleanup", KeepLargestComponent(), output_dirs=["clean"],
+        seed=22, options=clean_options, device=dev, **common))
+    pipe_d = ProcessingPipeline(root_dir=root / "D")
+    pipe_d.add_step(ProcessingStep(
+        "fused_chain", chain, input_dirs=[crops_dir], output_dirs=["out"],
+        seed=23, sample_k=k, device=dev, **common))
+    pipe_e = ProcessingPipeline(root_dir=root / "E")
+    pipe_e.add_step(ProcessingStep(
+        "to_jpg", save_as_jpg, input_dirs=[crops_dir],
+        output_dirs=["jpg"], seed=24, sample_k=k, **common))
+    pipe_e.add_step(ProcessingStep(
+        "enhance", EnhanceImage(), output_dirs=["enhance"], seed=25,
+        pairing_method="sample", device=dev, **common))
+    pipe_e.add_step(ProcessingStep(
+        "border_crop", BorderCrop(), output_dirs=["border"], seed=26,
+        options=border_options, device=dev, **common))
+    pipe_e.add_step(ProcessingStep(
+        "fit_crop", FitCrop(), output_dirs=["fit"], seed=27, device=dev,
+        **common))
+
+    # every labeling of a run: its most sweeps an item, kept on the card
+    sweeps = []
+    real_label = ccl.label_components
+
+    def counting_label(fg, **kw):
+        labels, iters = real_label(fg, return_iters=True, **kw)
+        sweeps.append(iters.max())
+        return labels
+
+    def with_sweeps(run):
+        """(device events, sweeps and host read-backs of each batch)."""
+        del sweeps[:]
+        ccl.label_components = counting_label
+        try:
+            events = profiled_step(run)
+        finally:
+            ccl.label_components = real_label
+        every = ccl.CHECK_EVERY
+        ran = [-(-int(m) // every) * every for m in sweeps]
+        return events, ran, [r // every for r in ran]
+
+    t0 = time.perf_counter()
+    mask_step, clean_step = pipe_c.steps
+    pipe_c.run(from_step_index=0, only_one=True, progress=False)
+    clean_events, clean_sweeps, clean_reads = with_sweeps(
+        lambda: pipe_c.run(from_step_index=1, progress=False))
+    chain_step = pipe_d.steps[0]
+    ((chain_events, chain_sweeps, chain_reads), counts), chain_direct = \
+        count_direct_tiles(kernels, dev, lambda: drive(
+            kernels, None,
+            lambda: with_sweeps(lambda: pipe_d.run(progress=False))))
+    pipe_e.run(progress=False)
+    new_s = time.perf_counter() - t0
+    for step in (*pipe_c.steps, chain_step, *pipe_e.steps):
+        require_success(step, k)
+        print(step_line(step, card))
+    files = {f"{pipe}/{name}": count_files(root / pipe / name, k, name)
+             for pipe, name in (("C", "mask"), ("C", "clean"),
+                                ("D", "out"), ("E", "jpg"),
+                                ("E", "enhance"), ("E", "border"),
+                                ("E", "fit"))}
+    print(f"engine files of pipelines C, D, E: {files} in {new_s:.1f} s")
+    want = {name: 0 for name in counts} | {
+        "shear_rotate_packed": chain_step.metrics.batches}
+    if counts != want or chain_step.metrics.batches < k // 8:
+        raise AssertionError(f"pipeline D launch counts {counts}, "
+                             f"expected {want}")
+    if chain_direct:
+        raise AssertionError(f"pipeline D: {chain_direct} tiles took the "
+                             f"direct gather")
+    launches["shear_rotate_packed"] += counts["shear_rotate_packed"]
+    print(f"pipeline D: shear_rotate_packed launched "
+          f"{counts['shear_rotate_packed']} times, once for each of the "
+          f"fused chain's {chain_step.metrics.batches} batches; direct "
+          f"tiles {chain_direct}")
+    for step, events, ran, reads in (
+            (clean_step, clean_events, clean_sweeps, clean_reads),
+            (chain_step, chain_events, chain_sweeps, chain_reads)):
+        line, by_name = idle_line(step, events, card)
+        print(line)
+        print(f"  connected components in step {step.name}: sweeps a "
+              f"batch {ran}, host read-backs a batch {reads} (one every "
+              f"{ccl.CHECK_EVERY} sweeps)")
+        if len(ran) != step.metrics.batches \
+                or min(ran) < ccl.CHECK_EVERY:
+            raise AssertionError(f"{step.name}: {len(ran)} labelings for "
+                                 f"{step.metrics.batches} batches")
+    if not any("shear_tile_kernel" in name for name in by_name):
+        raise AssertionError("profiler saw no shear_tile_kernel in "
+                             "pipeline D")
+
+    # outputs are not degenerate
+    from PIL import Image
+
+    masked = [np.asarray(Image.open(p))[..., 3]
+              for p in sorted((root / "C/clean").iterdir())]
+    share = float(np.mean([(a == 0).mean() for a in masked]))
+    if not (any((a == 0).any() for a in masked)
+            and all((a == 255).any() for a in masked)):
+        raise AssertionError("pipeline C: alpha is degenerate")
+    same = sum(
+        np.array_equal(np.asarray(Image.open(p).convert("RGB")),
+                       np.asarray(Image.open(crops_dir / p.name)))
+        for p in (root / "D/out").iterdir())
+    if same:
+        raise AssertionError(f"pipeline D: {same} files equal their "
+                             f"inputs")
+    fit_sizes = {Image.open(p).size
+                 for p in (root / "E/fit").iterdir()}
+    print(f"pipeline C: transparent share of the cleaned files "
+          f"{share:.3f}; pipeline D: no output equals its input; "
+          f"pipeline E: fit-crop sizes {sorted(fit_sizes)}")
+
+    # one batch of each new step: the card against the CPU, byte for
+    # byte; and pipeline D's against the plain twin in the kernel's place
+    def first(directory, n=8):
+        return [(p,) for p in sorted(Path(directory).iterdir())[:n]]
+
+    flagged = [(p, i % 2 == 0, i % 3 == 0)
+               for i, (p,) in enumerate(first(root / "E/jpg"))]
+    chain_on_card = None
+    for name, transform, inputs, options, seed in (
+            ("color_mask", mask_step.process_function, first(crops_dir),
+             mask_options, 21),
+            ("cleanup", clean_step.process_function,
+             first(root / "C/mask"), clean_options, 22),
+            ("fused_chain", chain, first(crops_dir), {}, 23),
+            ("enhance", pipe_e.steps[1].process_function, flagged, {},
+             25),
+            ("border_crop", pipe_e.steps[2].process_function,
+             first(root / "E/enhance"), border_options, 26),
+            ("fit_crop", pipe_e.steps[3].process_function,
+             first(root / "E/border"), {}, 27)):
+        on_card = one_batch(transform, inputs, options, seed, dev)
+        check_batches_equal(
+            on_card, one_batch(transform, inputs, options, seed, "cpu"),
+            f"engine step {name} device_fn, card != CPU")
+        shapes = {k_: tuple(v.shape) for k_, v in on_card.items()}
+        print(f"engine: one {name} batch, device_fn on the card == on "
+              f"the CPU, byte for byte: {shapes}")
+        if name == "fused_chain":
+            chain_on_card = on_card
+    real_batch = fused.rotate_ops.rotate_square_shear_batch
+    fused.rotate_ops.rotate_square_shear_batch = plain_rotate_batch
+    try:
+        with_plain = one_batch(chain, first(crops_dir), {}, 23, dev)
+    finally:
+        fused.rotate_ops.rotate_square_shear_batch = real_batch
+    check_batches_equal(chain_on_card, with_plain,
+                        "pipeline D device_fn, kernel != plain twin")
+    print("engine: one fused_chain batch, device_fn with the kernel == "
+          "with geometry.rotate_square_shear_by in its place, byte for "
+          "byte")
+
+    # the kernel alone at the Rotate stage's shape, one batch of 8
+    S = chain_on_card["image"].shape[1]
+    rng = np.random.default_rng(8)
+    simgs = torch.as_tensor(rng.integers(0, 256, (8, S, S, 4), np.uint8),
+                            device=dev)
+    sshifts = geometry.shear_params(torch.as_tensor(
+        rng.uniform(1, 359, 8).astype(np.float32), device=dev), S)
+    check_equal(rotate.launch_shear(simgs, *sshifts),
+                geometry.rotate_square_shear_by(simgs, *sshifts),
+                "shear_rotate_packed at the Rotate stage's shape")
+    stage_kernel = {
+        "shape": [8, S, S, 4],
+        "ms": device_ms(lambda: rotate.launch_shear(simgs, *sshifts)),
+        "plain_ms": statistics.median(time_calls(
+            lambda i: geometry.rotate_square_shear_by(simgs, *sshifts),
+            calls=5, windows=3)),
+        "bound_ms": rotate_bytes(S, 8, 4) / HBM_BYTES_PER_S * 1e3,
+        "launches_a_step": counts["shear_rotate_packed"]}
+    print(f"shear_rotate_packed at the Rotate stage's shape "
+          f"{stage_kernel['shape']}: kernel {stage_kernel['ms']:.4f} ms "
+          f"of device time a launch, bound "
+          f"{stage_kernel['bound_ms']:.4f} ms "
+          f"({rotate_bytes(S, 8, 4)} bytes at 3.35 TB/s), plain "
+          f"{stage_kernel['plain_ms']:.4f} ms a call, "
+          f"{stage_kernel['launches_a_step']} launches a step of {k} "
+          f"images; card {card}")
+    return stage_kernel
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -421,12 +726,7 @@ def main() -> None:
     # counts the tiles that gathered from device memory: none on "tiled"
     # with shear_params vectors, all of them on "direct"
     def direct_count(fn):
-        kernels.direct_tiles = torch.zeros(1, dtype=torch.int32, device=dev)
-        try:
-            out = fn()
-            return out, int(kernels.direct_tiles)
-        finally:
-            kernels.direct_tiles = None
+        return count_direct_tiles(kernels, dev, fn)
 
     for S, C, B in ((512, 4, 16), (512, 3, 16), (512, 1, 16), (512, 2, 16),
                     (64, 2, 16), (97, 1, 16), (768, 1, 16), (768, 3, 8)):
@@ -802,9 +1102,21 @@ def main() -> None:
               f"launch): " + ", ".join(f"{w} {ms:.5f}" for w, ms in turns)
               + f"; card {card}")
     p1_bound_ms = 2 * 4 * rev_probe.S ** 2 / HBM_BYTES_PER_S * 1e3
+    # what a launch alone costs: a kernel that does nothing, in the same
+    # window form, one CTA and the grid of the probe's vector kernels
+    p1_grid = rev_probe.S ** 2 // 4 // 256
+    empty_ms = {blocks: min(device_ms(
+        lambda: rev_probe.launch_empty(dev, blocks), calls=200)
+        for _ in range(2)) for blocks in (1, p1_grid)}
+    p1_floor_ms = max(p1_bound_ms, empty_ms[1])
     print(f"rev_probe bound {p1_bound_ms:.6f} ms (2 x {4 * rev_probe.S ** 2} "
-          f"bytes at 3.35 TB/s): a launch this small is set by launch "
-          f"latency, not bytes")
+          f"bytes at 3.35 TB/s); an empty kernel's launch alone "
+          f"{empty_ms[1]:.5f} ms with 1 CTA, {empty_ms[p1_grid]:.5f} ms with "
+          f"{p1_grid} CTAs; floor max(byte bound, launch alone) "
+          f"{p1_floor_ms:.5f} ms, set by the launch; share of the floor "
+          + ", ".join(f"{name} {p1_floor_ms / ms:.3f}"
+                      for name, ms in p1_ms.items())
+          + f"; card {card}")
 
     # ---- the engine: pipelines A and B over a directory of files ----------
     import PIL
@@ -849,7 +1161,8 @@ def main() -> None:
             options=rot_options, device=dev))
         pipe_b.add_step(ProcessingStep(
             "symmetry", GenerateSymmetries(), output_dirs=["sym"],
-            seed=sym_seed, workers=workers, save_log=True, device=dev))
+            seed=sym_seed, workers=workers, save_log=True, device=dev,
+            sample_k=ENGINE_SYMMETRY_ITEMS))
 
         def run_engine():
             pipe_a.run(progress=False)
@@ -867,7 +1180,7 @@ def main() -> None:
         engine_s = time.perf_counter() - t0
         n_rot = n * (ENGINE_ROTATIONS + 1)
         for step, items in ((crop_step, n), (copy_step, n), (rot_step, n),
-                            (sym_step, n_rot)):
+                            (sym_step, ENGINE_SYMMETRY_ITEMS)):
             require_success(step, items)
             print(step_line(step, card))
         files = {
@@ -878,7 +1191,8 @@ def main() -> None:
             "A/copy/labels": count_files(root / "A/copy/labels", n,
                                          "copied labels"),
             "B/rot": count_files(root / "B/rot", n_rot, "rotations"),
-            "B/sym": count_files(root / "B/sym", 4 * n_rot, "symmetries")}
+            "B/sym": count_files(root / "B/sym", 4 * ENGINE_SYMMETRY_ITEMS,
+                                 "symmetries")}
         print(f"engine files: {files} in {engine_s:.1f} s")
         want = {name: 0 for name in counts} | {
             "shear_rotate_packed": rot_step.metrics.batches}
@@ -893,23 +1207,12 @@ def main() -> None:
               f"{counts['shear_rotate_packed']} times, once for each of the "
               f"rotations step's {rot_step.metrics.batches} batches; direct "
               f"tiles {engine_direct}")
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = busy_ms(events)
-        wall = rot_step.metrics.wall_seconds * 1e3
-        by_name = {}
-        for e in events:
-            by_name[e.name] = (by_name.get(e.name, 0)
-                               + e.time_range.elapsed_us() / 1e3)
-        top = sorted(((name[:48], ms) for name, ms in by_name.items()),
-                     key=lambda kv: -kv[1])[:5]
+        line, by_name = idle_line(rot_step, [
+            e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA], card)
         shear_ms = sum(ms for name, ms in by_name.items()
                        if "shear_tile_kernel" in name)
-        print(f"profiler, engine step rotations: wall {wall:.1f} ms, device "
-              f"busy {busy:.1f} ms, idle share {1 - busy / wall:.4f}; "
-              f"shear_tile_kernel {shear_ms:.3f} ms in all; largest "
-              + ", ".join(f"{name} {ms:.1f}" for name, ms in top)
-              + f"; card {card}")
+        print(f"{line}; shear_tile_kernel {shear_ms:.3f} ms in all")
         if shear_ms <= 0:
             raise AssertionError("profiler saw no shear_tile_kernel")
 
@@ -951,13 +1254,8 @@ def main() -> None:
         key = transform.bucket_key(chunk[0], rot_options)
         kernel_out = transform.launch_batch(key, chunk, rot_options, dev)
 
-        def plain_batch(images, angles, shifts=None):
-            if shifts is None:
-                shifts = geometry.shear_params(angles, images.shape[1])
-            return geometry.rotate_square_shear_by(images, *shifts)
-
         real_batch = rotations.rotate_ops.rotate_square_shear_batch
-        rotations.rotate_ops.rotate_square_shear_batch = plain_batch
+        rotations.rotate_ops.rotate_square_shear_batch = plain_rotate_batch
         try:
             plain_out = transform.launch_batch(key, chunk, rot_options, dev)
         finally:
@@ -990,6 +1288,19 @@ def main() -> None:
               f"{engine_kernel['plain_ms']:.4f} ms a call; card {card}")
         del kernel_out, plain_out, eimgs
 
+        # F6: the shift vectors come from the host, so a rotations batch on
+        # the card equals the same batch on the CPU, byte for byte
+        two = [(p,) for p in crops[:2]]
+        check_batches_equal(
+            one_batch(transform, two, rot_options, rot_seed, dev),
+            one_batch(transform, two, rot_options, rot_seed, "cpu"),
+            "engine rotations device_fn, card != CPU")
+        print("engine: one rotations batch (2 images, 8 canvases of 768), "
+              "device_fn on the card == on the CPU, byte for byte")
+
+        stage_kernel = mask_chain_crop_pipelines(root, dev, card, workers,
+                                                 launches)
+
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
@@ -1001,7 +1312,8 @@ def main() -> None:
         "device_ms": {f"B={B}": dev_ms[name, B] for B in BATCHES},
         "bound_ms_by_batch": {f"B={B}": bound_ms[name, B] for B in BATCHES},
         "plain_ms_by_batch": {f"B={B}": plain_ms[name, B] for B in BATCHES},
-    } | ({"engine": engine_kernel} if name == "shear_rotate_packed" else {})
+    } | ({"engine": engine_kernel, "fused_chain": stage_kernel}
+         if name == "shear_rotate_packed" else {})
         for name, (source, replaces) in KERNELS.items()] + [{
         "name": "rev_probe", "route": "cuda", "source": CSRC + "rev_probe.cu",
         "replaces": "benchmarks/rev_probe.py:25",
@@ -1011,7 +1323,9 @@ def main() -> None:
         "bound_ms": p1_bound_ms, "bound_by": "bytes",
         "library_ms": statistics.mean(p1_lib_ms.values()),
         "block": [rev_probe.S, rev_probe.S],
-        "ms_by_move": p1_ms, "library_ms_by_move": p1_lib_ms}]}))
+        "ms_by_move": p1_ms, "library_ms_by_move": p1_lib_ms,
+        "launch_ms": empty_ms[1], "floor_ms": p1_floor_ms,
+        "floor_by": "launch" if empty_ms[1] > p1_bound_ms else "bytes"}]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,16 +5,19 @@ Module names mirror the JAX package so each counterpart is easy to find:
 ``pipeline`` (the engine: ``ProcessingPipeline`` of ``ProcessingStep``s over
 directories of images and YOLO labels), ``pairing``, ``io`` (decode, encode,
 labels, bucketing), ``transforms`` (``SquareCropAroundBBox``,
-``RandomRotations``, ``GenerateSymmetries`` and the host steps), ``random``
-(jax.random's threefry draws, bit-exact), ``ops.*`` (plain torch twins of
-the JAX ops), ``ops.augment`` and ``ops.rotate`` (the wrappers around the
+``RandomRotations``, ``GenerateSymmetries``, ``ColorMaskTransparency``,
+``KeepLargestComponent``, ``EnhanceImage``, ``BorderCrop``, ``FitCrop``,
+``FusedChain`` with its stages in ``transforms.fused``, and the host
+steps), ``random`` (jax.random's threefry draws, bit-exact), ``ops.*``
+(plain torch twins of the JAX ops, ``ops.ccl`` the connected components),
+``ops.augment`` and ``ops.rotate`` (the wrappers around the
 hand-written CUDA kernels in ``csrc/``), ``kernels`` (nvcc build and ctypes
 binding), ``models.chains`` (the flagship chain as an ``nn.Module``),
 ``utils`` and ``interop`` (carries the JAX package's draws across).
 
 Steps compute on ``device="cuda"`` unless told ``device="cpu"``.  Not ported
-yet: the device JPEG codec, the native C++ twins, step fusion, the other
-transforms, meshes, the CLI and ``config``.
+yet: the device JPEG codec, the native C++ twins, step fusion, overlays,
+video, the fan-out composites, meshes, the CLI and ``config``.
 """
 
 from image_processor_pipeline_tpu_torch.pipeline import ProcessingPipeline, ProcessingStep

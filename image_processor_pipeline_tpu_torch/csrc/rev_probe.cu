@@ -19,6 +19,9 @@
 // Bound.  Memory bandwidth: the block read once and written once.  At the
 // probe's 512 x 512 block that is 2 MiB, under a microsecond of device
 // memory time: a launch this small is set by launch latency, not bytes.
+// ipp_empty_launch launches a kernel that does nothing, so that a caller
+// can time what a launch alone costs on the card and hold the moves
+// against that.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +79,8 @@ __global__ void rev_probe_word_kernel(const int32_t* __restrict__ src,
   }
 }
 
+__global__ void empty_kernel() {}
+
 int blocks_for(size_t n) {
   const size_t want = (n + kThreads - 1) / kThreads;
   return (int)(want < (size_t)kMaxBlocks ? want : (size_t)kMaxBlocks);
@@ -121,5 +126,14 @@ extern "C" int ipp_rev_probe(const int32_t* src, int32_t* dst, int rows,
     case kRevRows: launch<kRevRows>(src, dst, rows, cols, 0, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// Launches ``blocks`` CTAs of kThreads threads that do nothing: the cost of
+// a launch alone.  Returns cudaErrorInvalidValue unless 1 <= blocks <=
+// kMaxBlocks, else cudaGetLastError() after launching.
+extern "C" int ipp_empty_launch(int blocks, cudaStream_t stream) {
+  if (blocks < 1 || blocks > kMaxBlocks) return (int)cudaErrorInvalidValue;
+  empty_kernel<<<blocks, kThreads, 0, stream>>>();
   return (int)cudaGetLastError();
 }

@@ -131,9 +131,11 @@ def library() -> ctypes.CDLL:
             lib.ipp_augment_max_active_clusters.argtypes = [i32] * 3 + [ptr]
             lib.ipp_shear_rotate.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
             lib.ipp_rev_probe.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
+            lib.ipp_empty_launch.argtypes = [i32, ptr]
             for fn in (lib.ipp_augment_full,
                        lib.ipp_augment_max_active_clusters,
-                       lib.ipp_shear_rotate, lib.ipp_rev_probe):
+                       lib.ipp_shear_rotate, lib.ipp_rev_probe,
+                       lib.ipp_empty_launch):
                 fn.restype = i32
             lib.ipp_cuda_error_string.argtypes = [i32]
             lib.ipp_cuda_error_string.restype = ctypes.c_char_p

@@ -1,5 +1,5 @@
 """Geometric ops on padded images (twin of
-image_processor_pipeline_tpu/ops/geometry.py:32-246, 347-348, 615-744).
+image_processor_pipeline_tpu/ops/geometry.py:32-580, 615-744).
 
 Representation: a padded canvas ``[B, H, W, C]`` holding, per item, a valid
 region ``[0:h, 0:w]``.  Invariant maintained by every op here: pixels
@@ -7,11 +7,19 @@ outside the valid region are 0.  Per-item parameters are ``[B]`` or
 ``[B, N]`` tensors on the images' device (python numbers broadcast): the
 batch axis written out where the JAX package vmaps a per-image function.
 
-``rotate_expand`` samples nearest only; the JAX package's bilinear and
-double-double forms are not ported yet.
+``rotate_expand`` samples nearest or bilinear in float32, one angle an
+item, as the JAX function does for traced angles (the engine's path);
+``rotate_bilinear_exact`` is the PIL-exact bilinear rotation of one image
+by an angle and a size the host knows.  The JAX package emulates float64
+there in double-double arithmetic, the TPU having none; the CPU and the
+H100 have float64, so this port computes Pillow's own double arithmetic
+in Pillow's order, which gives Pillow's bits (and the double-double
+form's on every test case).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -28,6 +36,13 @@ def valid_mask(h, w, H: int, W: int, device=None):
     iy = torch.arange(H, dtype=torch.int32, device=device)[:, None]
     ix = torch.arange(W, dtype=torch.int32, device=device)[None, :]
     return (iy < h) & (ix < w)
+
+
+def item_extent(v, device):
+    """An extent ``h`` or ``w`` (a number, or a tensor of one value an item)
+    as an int32 tensor that broadcasts against [..., H, W] planes."""
+    t = torch.as_tensor(v, device=device).to(torch.int32)
+    return t.reshape(t.shape + (1, 1))
 
 
 def _per_item(v, B: int, device, dtype=torch.int32):
@@ -185,6 +200,17 @@ def fit_crop(img, h, w):
     return crop(img, y0, x0, bh, bw), bh, bw
 
 
+def border_crop(img, h, w, top, bottom, left, right):
+    """Crop margins (absolute pixel counts, [B] or numbers) off each side of
+    every item (reference recadrages.py:13-61).  Returns (img, ch, cw)."""
+    B = img.shape[0]
+    h, w, top, bottom, left, right = (
+        _per_item(v, B, img.device) for v in (h, w, top, bottom, left, right))
+    ch = h - top - bottom
+    cw = w - left - right
+    return crop(img, top, left, ch, cw), ch, cw
+
+
 # ---------------------------------------------------------------------------
 # arbitrary-angle rotation with expand (PIL semantics)
 # ---------------------------------------------------------------------------
@@ -222,18 +248,64 @@ def rotated_size(h, w, angle_deg):
     return h2, w2
 
 
+INTERPOLATIONS = ("nearest", "bilinear")
+
+
+def _premultiply(img):
+    """RGBA uint8 → premultiplied int32, as PIL converts RGBA to RGBa
+    before a transform: c' = MULDIV255(c, a)."""
+    ci = img[..., :3].to(torch.int32)
+    ai = img[..., 3:].to(torch.int32)
+    tmp = ci * ai + 128
+    return torch.cat([((tmp >> 8) + tmp) >> 8, ai], dim=-1)
+
+
+def _unpremultiply(out_i):
+    """Premultiplied int32 → RGBA int32: floor(c'*255 / a), 0 where a=0."""
+    a_out = out_i[..., 3:]
+    rgb = torch.div(out_i[..., :3] * 255, a_out.clamp(min=1),
+                    rounding_mode="floor").clamp(0, 255)
+    rgb = torch.where(a_out > 0, rgb, 0)
+    return torch.cat([rgb, a_out], dim=-1)
+
+
+def _bilinear_taps(work, y0, x0, h, w):
+    """The four taps [B, H, W, C] of ``work`` [B, H, W, C] at (y0, x0),
+    (y0, x0+1), (y0+1, x0), (y0+1, x0+1) (int32 [B, H, W]), replicate-
+    clamped at each item's valid extent h, w ([B, 1, 1])."""
+    B, H, W, C = work.shape
+    flat = work.reshape(B, H * W, C)
+
+    def sample(yy, xx):
+        yyc = torch.minimum(yy.clamp(min=0), h - 1)
+        xxc = torch.minimum(xx.clamp(min=0), w - 1)
+        index = (yyc * W + xxc).reshape(B, H * W, 1).long()
+        return torch.gather(flat, 1, index.expand(B, H * W, C)).reshape(
+            B, H, W, C)
+
+    return (sample(y0, x0), sample(y0, x0 + 1), sample(y0 + 1, x0),
+            sample(y0 + 1, x0 + 1))
+
+
 def rotate_expand(img, h, w, angle_deg, interpolation: str = "nearest"):
     """Rotate each item CCW by its ``angle_deg`` with canvas expansion, fill
-    transparent (PIL Image.rotate(angle, expand=True), nearest sampling).
+    transparent (PIL Image.rotate(angle, expand=True)), sampling nearest or
+    bilinear in float32.
 
-    img [B, H, W, C]; h, w, angle_deg [B].  The rotated content lands at
-    the canvas origin with new extents (h2, w2) [B] int32.  Outside pixels
-    are 0.  Returns (out_img, h2, w2).
+    img [B, H, W, C] uint8; h, w, angle_deg [B].  The rotated content lands
+    at the canvas origin with new extents (h2, w2) [B] int32.  Outside
+    pixels are 0.  Returns (out_img, h2, w2).
+
+    'bilinear' follows PIL's transform(AFFINE, BILINEAR): the output→input
+    affine with the angle negated, fill where the source point lies outside
+    [0, w) × [0, h) before the half-pixel shift, taps replicate-clamped at
+    the valid extent, RGBA through premultiplied alpha, the result
+    truncated.  In float32 a pixel on a fill boundary can differ from
+    Pillow by one; ``rotate_bilinear_exact`` is bit-exact.
     """
-    if interpolation != "nearest":
-        raise NotImplementedError(
-            f"interpolation {interpolation!r}: this port samples nearest "
-            "only")
+    if interpolation not in INTERPOLATIONS:
+        raise ValueError(f"unknown interpolation {interpolation!r}; choose "
+                         f"from {INTERPOLATIONS}")
     B, H, W, C = img.shape
     dev = img.device
     h = _per_item(h, B, dev)
@@ -242,32 +314,140 @@ def rotate_expand(img, h, w, angle_deg, interpolation: str = "nearest"):
     cos, sin, hf, wf, ex, ey = (
         t.view(B, 1, 1) for t in _expand_extents(h, w, angle_deg))
     h2, w2 = rotated_size(h, w, angle_deg)
-
     cy_in = hf / 2
     cx_in = wf / 2
-    # PIL places the output origin at floor(min corner coordinate), not at
-    # a center-to-center alignment — keep the same subpixel offset.
-    tx = torch.floor(cx_in - ex + _EXPAND_EPS)
-    ty = torch.floor(cy_in - ey + _EXPAND_EPS)
-
-    # output pixel centers in the pre-shift frame
     iy = torch.arange(H, dtype=torch.float32, device=dev).view(1, H, 1)
     ix = torch.arange(W, dtype=torch.float32, device=dev).view(1, 1, W)
-    dy = (iy + 0.5 + ty) - cy_in
-    dx = (ix + 0.5 + tx) - cx_in
-    # inverse map of a visual-CCW rotation (image y axis points down)
-    sx = cos * dx - sin * dy + cx_in
-    sy = sin * dx + cos * dy + cy_in
+    zero = torch.zeros((), dtype=img.dtype, device=dev)
 
-    inb = (sx >= 0) & (sx < wf) & (sy >= 0) & (sy < hf)
-    ixc = torch.floor(sx).to(torch.int32).clamp(0, W - 1)
-    iyc = torch.floor(sy).to(torch.int32).clamp(0, H - 1)
-    flat = img.reshape(B, H * W, C)
-    index = (iyc * W + ixc).reshape(B, H * W, 1).long().expand(B, H * W, C)
-    out = torch.gather(flat, 1, index).reshape(B, H, W, C)
-    out = torch.where(inb[..., None], out,
-                      torch.zeros((), dtype=img.dtype, device=dev))
-    return apply_mask(out, h2, w2), h2, w2
+    if interpolation == "nearest":
+        # PIL places the output origin at floor(min corner coordinate), not
+        # at a center-to-center alignment — keep the same subpixel offset.
+        tx = torch.floor(cx_in - ex + _EXPAND_EPS)
+        ty = torch.floor(cy_in - ey + _EXPAND_EPS)
+        # output pixel centers in the pre-shift frame
+        dy = (iy + 0.5 + ty) - cy_in
+        dx = (ix + 0.5 + tx) - cx_in
+        # inverse map of a visual-CCW rotation (image y axis points down)
+        sx = cos * dx - sin * dy + cx_in
+        sy = sin * dx + cos * dy + cy_in
+        inb = (sx >= 0) & (sx < wf) & (sy >= 0) & (sy < hf)
+        ixc = torch.floor(sx).to(torch.int32).clamp(0, W - 1)
+        iyc = torch.floor(sy).to(torch.int32).clamp(0, H - 1)
+        flat = img.reshape(B, H * W, C)
+        index = (iyc * W + ixc).reshape(B, H * W, 1).long().expand(
+            B, H * W, C)
+        out = torch.gather(flat, 1, index).reshape(B, H, W, C)
+        out = torch.where(inb[..., None], out, zero)
+        return apply_mask(out, h2, w2), h2, w2
+
+    # cos(-θ) = cos θ and sin(-θ) = -sin θ exactly, in float32 as in XLA
+    ca, sa = cos, -sin
+    c0 = ca * (-cx_in) + sa * (-cy_in) + cx_in
+    f0 = -sa * (-cx_in) + ca * (-cy_in) + cy_in
+    ex2 = -(w2.to(torch.float32).view(B, 1, 1) - wf) / 2
+    ey2 = -(h2.to(torch.float32).view(B, 1, 1) - hf) / 2
+    c1 = ca * ex2 + sa * ey2 + c0
+    f1 = -sa * ex2 + ca * ey2 + f0
+    X, Y = ix + 0.5, iy + 0.5
+    xin = ca * X + sa * Y + c1
+    yin = -sa * X + ca * Y + f1
+    inb = (xin >= 0) & (xin < wf) & (yin >= 0) & (yin < hf)
+    fx, fy = xin - 0.5, yin - 0.5
+    x0f, y0f = torch.floor(fx), torch.floor(fy)
+    tx_w, ty_w = (fx - x0f)[..., None], (fy - y0f)[..., None]
+    work = _premultiply(img) if C == 4 else img
+    v00, v01, v10, v11 = _bilinear_taps(
+        work.to(torch.float32), y0f.to(torch.int32), x0f.to(torch.int32),
+        h.view(B, 1, 1), w.view(B, 1, 1))
+    # PIL's BILINEAR macro is v = a + d*(b - a) — keep the same form
+    top = v00 + tx_w * (v01 - v00)
+    bot = v10 + tx_w * (v11 - v10)
+    outf = top + ty_w * (bot - top)
+    outf = torch.where(inb[..., None], outf, 0.0)
+    # (UINT8)v — truncation toward zero (values are >= 0)
+    out_i = torch.floor(outf).clamp(0, 255).to(torch.int32)
+    if C == 4:
+        out_i = _unpremultiply(out_i)
+    return apply_mask(out_i.to(img.dtype), h2, w2), h2, w2
+
+
+def _pil_rotate_matrix(w: int, h: int, angle: float):
+    """Pillow Image.rotate(expand=True) affine construction, replicated in
+    float64 verbatim (trig rounded to 15 decimals, corner-based expand
+    size, center-preserving translation).  Returns (matrix[6], nw, nh)."""
+    angle = angle % 360.0
+    rc_x, rc_y = w / 2.0, h / 2.0
+    a_r = -math.radians(angle)
+    m = [round(math.cos(a_r), 15), round(math.sin(a_r), 15), 0.0,
+         round(-math.sin(a_r), 15), round(math.cos(a_r), 15), 0.0]
+
+    def trans(x, y):
+        return m[0] * x + m[1] * y + m[2], m[3] * x + m[4] * y + m[5]
+
+    m[2], m[5] = trans(-rc_x, -rc_y)
+    m[2] += rc_x
+    m[5] += rc_y
+    xx, yy = [], []
+    for x, y in ((0, 0), (w, 0), (w, h), (0, h)):
+        px, py = trans(x, y)
+        xx.append(px)
+        yy.append(py)
+    nw = math.ceil(max(xx)) - math.floor(min(xx))
+    nh = math.ceil(max(yy)) - math.floor(min(yy))
+    m[2], m[5] = trans(-(nw - w) / 2.0, -(nh - h) / 2.0)
+    return m, nw, nh
+
+
+def rotate_bilinear_exact(img, angle: float, h: int, w: int):
+    """PIL-exact bilinear rotate-expand of ONE image for a host-known angle
+    and size: bit-identical to Image.rotate(angle, expand=True,
+    resample=BILINEAR).  img: uint8 [H, W, C] holding the image in
+    [0:h, 0:w]; returns (out [H, W, C], nh, nw), the expanded extents as
+    python ints (they must fit the canvas).
+
+    The affine constants come from ``_pil_rotate_matrix``; the per-pixel
+    affine, fill predicate, tap weights and blends are Pillow's own float64
+    operations in Pillow's order (Geometry.c: affine_transform,
+    bilinear_filter), and RGBA goes through the premultiplied round trip of
+    Image.transform.  Multiples of 90° take Pillow's transpose path, a
+    pixel copy.
+    """
+    H, W, C = img.shape
+    dev = img.device
+    angle, h, w = float(angle), int(h), int(w)
+    angle_mod = angle % 360.0
+    if angle_mod % 90.0 == 0.0:
+        rot = torch.rot90(img[:h, :w], int(angle_mod // 90.0) % 4, (0, 1))
+        nh, nw = rot.shape[0], rot.shape[1]
+        out = torch.zeros_like(img)
+        out[:nh, :nw] = rot
+        return out, nh, nw
+
+    m, nw, nh = _pil_rotate_matrix(w, h, angle)
+    X = torch.arange(W, dtype=torch.float64, device=dev).view(1, W) + 0.5
+    Y = torch.arange(H, dtype=torch.float64, device=dev).view(H, 1) + 0.5
+    xin = m[0] * X + m[1] * Y + m[2]
+    yin = m[3] * X + m[4] * Y + m[5]
+    inb = (xin >= 0) & (xin < w) & (yin >= 0) & (yin < h)
+    fx, fy = xin - 0.5, yin - 0.5
+    x0f, y0f = torch.floor(fx), torch.floor(fy)
+    dx, dy = (fx - x0f)[..., None], (fy - y0f)[..., None]
+    work = _premultiply(img) if C == 4 else img
+    extent = torch.tensor([h, w], dtype=torch.int32, device=dev)
+    v00, v01, v10, v11 = (t[0] for t in _bilinear_taps(
+        work.to(torch.float64)[None], y0f.to(torch.int32)[None],
+        x0f.to(torch.int32)[None], extent[0].view(1, 1, 1),
+        extent[1].view(1, 1, 1)))
+    top = v00 + dx * (v01 - v00)
+    bot = v10 + dx * (v11 - v10)
+    outv = top + dy * (bot - top)
+    out_i = torch.floor(outv).clamp(0, 255).to(torch.int32)
+    out_i = torch.where(inb[..., None], out_i, 0)
+    if C == 4:
+        out_i = _unpremultiply(out_i)
+    out = apply_mask(out_i.to(img.dtype)[None], nh, nw)[0]
+    return out, nh, nw
 
 
 def shift_bits_for(size: int) -> int:

@@ -67,6 +67,23 @@ def split(key, num: int = 2):
     return np.stack([b1, b2], axis=-1)
 
 
+def fold_in(key, data):
+    """``jax.random.fold_in``: a new key [..., 2] from ``key`` [..., 2] and
+    the uint32 ``data`` (a number, or an array that broadcasts against the
+    leading key axes): the hash of the counter pair (0, data) under
+    ``key``, which is ``threefry_2x32(key, threefry_seed(data))``."""
+    key = np.asarray(key, _U32)
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], 0,
+                          np.asarray(data).astype(_U32))
+    return np.stack([b1, b2], axis=-1)
+
+
+def bernoulli(key, p):
+    """The chain stages' Bernoulli draw ``jax.random.uniform(key, ()) < p``
+    in float32: bool [...] for keys [..., 2]."""
+    return uniform(key) < np.float32(p)
+
+
 def random_bits(key, shape=()):
     """32 random bits per element: [..., 2] → [..., *shape] uint32."""
     key = np.asarray(key, _U32)

@@ -2,8 +2,13 @@ from image_processor_pipeline_tpu_torch.transforms.base import BatchTransform
 from image_processor_pipeline_tpu_torch.transforms.crop_square import SquareCropAroundBBox
 from image_processor_pipeline_tpu_torch.transforms.rotations import RandomRotations
 from image_processor_pipeline_tpu_torch.transforms.symmetry import GenerateSymmetries, ALL_SYMS
+from image_processor_pipeline_tpu_torch.transforms.enhance import EnhanceImage
+from image_processor_pipeline_tpu_torch.transforms.filters import ColorMaskTransparency
+from image_processor_pipeline_tpu_torch.transforms.recadrages import BorderCrop, FitCrop
+from image_processor_pipeline_tpu_torch.transforms.cleanup import KeepLargestComponent
 from image_processor_pipeline_tpu_torch.transforms.copy import copy_img_with_labels, copy_files
 from image_processor_pipeline_tpu_torch.transforms.labels import change_label_class
+from image_processor_pipeline_tpu_torch.transforms.fused import FusedChain
 
 __all__ = [
     "BatchTransform",
@@ -11,7 +16,13 @@ __all__ = [
     "RandomRotations",
     "GenerateSymmetries",
     "ALL_SYMS",
+    "EnhanceImage",
+    "ColorMaskTransparency",
+    "BorderCrop",
+    "FitCrop",
+    "KeepLargestComponent",
     "copy_img_with_labels",
     "copy_files",
     "change_label_class",
+    "FusedChain",
 ]

@@ -18,8 +18,14 @@ All B × N rotations of a batch run as one call: ``method='shear'`` rotates
 the B × N RGBA canvases with ``ops/rotate.py:rotate_square_shear_batch``,
 which on a CUDA card launches the hand-written kernel of
 ``csrc/shear_rotate.cu`` (or raises) and on the CPU runs its plain twin;
-``method='nearest'`` inverse-maps with a gather.  The JAX class's PIL-exact
-``native_fn`` and its device JPEG encode are not ported yet.
+``method='nearest'`` inverse-maps with a gather, sampling nearest or, with
+``interpolation='bilinear'``, PIL's bilinear in float32.  The angles are
+drawn on the host, and the shear method's shift vectors are computed there
+too (``host_shifts``), so that a run on the card and a run on the CPU write
+the same files: the card's float32 tan and sin differ from the CPU's by
+ulps.
+The JAX class's PIL-exact ``native_fn`` and its device JPEG encode are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -52,6 +58,15 @@ def draw_angles(seeds, num_rotations: int, angle_min: float,
     ``jax.random.uniform(PRNGKey(seed), (N,), angle_min, angle_max)``."""
     return jrandom.uniform(BatchTransform.keys_from_seeds(seeds),
                            (num_rotations,), angle_min, angle_max)
+
+
+def host_shifts(angles: np.ndarray, H: int, device):
+    """``geometry.shear_params`` of host ``angles`` (any shape; flattened)
+    for an H×H canvas, computed on the CPU and copied to ``device``:
+    (quad [n], sh1 [n, H], sh2 [n, H]) int32."""
+    flat = torch.from_numpy(np.array(angles, np.float32))
+    return tuple(to_device(t, device)
+                 for t in geometry.shear_params(flat.reshape(-1), H))
 
 
 def _rotate(img, h, w, angles, method: str,
@@ -133,8 +148,11 @@ class RandomRotations(BatchTransform):
         img = batch["image"]
         angles = draw_angles(batch["seed"], num_rotations, angle_min,
                              angle_max)
+        shifts = host_shifts(angles, img.shape[1], img.device) \
+            if method == "shear" else None
         return _rotate(img, batch["size"][:, 0], batch["size"][:, 1],
-                       to_device(angles, img.device), method, interpolation)
+                       to_device(angles, img.device), method, interpolation,
+                       shifts=shifts)
 
     def save_item(
         self,

@@ -75,6 +75,16 @@ def launch_move(x, name: str, shift: int = ROLL_SHIFT):
     return out
 
 
+def launch_empty(device, blocks: int = 1) -> None:
+    """Launch csrc/rev_probe.cu's kernel that does nothing, ``blocks`` CTAs
+    of 256 threads, on ``device``'s current stream: what a launch alone
+    costs, the floor under any move of a block this small.  Not a move: it
+    is not counted in ``kernels.launch_counts``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        kernels.check(kernels.library().ipp_empty_launch(int(blocks), stream))
+
+
 def device_us(fn, calls: int = 200) -> float:
     """Device microseconds per call of ``fn``: ``calls`` calls queued behind
     a sleeping kernel inside one CUDA-event window, so that the window

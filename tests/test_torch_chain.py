@@ -30,6 +30,14 @@ PORT_MODULES = (
     "image_processor_pipeline_tpu_torch.ops.rotate",
     "image_processor_pipeline_tpu_torch.models",
     "image_processor_pipeline_tpu_torch.models.chains",
+    "image_processor_pipeline_tpu_torch.ops.ccl",
+    "image_processor_pipeline_tpu_torch.pipeline",
+    "image_processor_pipeline_tpu_torch.transforms",
+    "image_processor_pipeline_tpu_torch.transforms.fused",
+    "image_processor_pipeline_tpu_torch.transforms.filters",
+    "image_processor_pipeline_tpu_torch.transforms.cleanup",
+    "image_processor_pipeline_tpu_torch.transforms.enhance",
+    "image_processor_pipeline_tpu_torch.transforms.recadrages",
 )
 
 

@@ -355,8 +355,9 @@ def test_engine_steps_on_card_launch_the_kernel_and_match_the_plain_twin(
         rot.metrics.batches >= 2
 
     def plain_batch(images, angles, shifts=None):
-        return geometry.rotate_square_shear_by(
-            images, *geometry.shear_params(angles, images.shape[1]))
+        if shifts is None:
+            shifts = geometry.shear_params(angles, images.shape[1])
+        return geometry.rotate_square_shear_by(images, *shifts)
 
     monkeypatch.setattr(rotations.rotate_ops, "rotate_square_shear_batch",
                         plain_batch)
@@ -413,3 +414,235 @@ def test_host_buffers_are_pinned_for_the_card(cuda_device):
     assert len(items) == 3 and sorted(items[0]) == ["n", "x"]
     assert (items[2]["x"] == 7).all() and items[2]["n"] == 2
     assert out["_host_copy"][0]["x"].is_pinned()
+
+
+# -- the mask, cleanup, enhance and crop ops and steps on the card --------------
+
+def _canvases(seed, B=6, H=96, W=128, C=3):
+    """Random canvases with per-item extents, zero outside them."""
+    rng = np.random.default_rng(seed)
+    hs = rng.integers(8, H + 1, B).astype(np.int32)
+    ws = rng.integers(8, W + 1, B).astype(np.int32)
+    img = rng.integers(0, 256, (B, H, W, C), np.uint8)
+    yy, xx = np.mgrid[0:H, 0:W]
+    img *= ((yy[None] < hs[:, None, None])
+            & (xx[None] < ws[:, None, None]))[..., None]
+    return rng, torch.as_tensor(img), torch.as_tensor(hs), torch.as_tensor(ws)
+
+
+def _same_on_card(fn, cuda_device, *tensors):
+    """fn's outputs on the card equal its outputs on the CPU, exactly."""
+    want = fn(*tensors)
+    got = fn(*(t.to(cuda_device) for t in tensors))
+    torch.cuda.synchronize()
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_blur_and_enhance_on_card_match_the_cpu(cuda_device, seed):
+    """The blur's constants are numpy arithmetic on the host and its passes
+    integers; the blends round once an op on either device."""
+    from image_processor_pipeline_tpu_torch.ops import photometric
+
+    rng, img, hs, ws = _canvases(seed)
+    B = len(img)
+    sigma = rng.uniform(0.5, 3.0, B).astype(np.float32)
+    mr = photometric.box_radius_bound(3.0)
+    _same_on_card(lambda i, h, w: photometric.gaussian_blur(
+        i, sigma, max_radius=mr, h=h, w=w, sigma_max=3.0),
+        cuda_device, img, hs, ws)
+    f = torch.as_tensor(rng.uniform(0.7, 1.3, (B, 3)).astype(np.float32))
+    gains = torch.as_tensor(rng.uniform(0.75, 1.25, (B, 3)).astype(np.float32))
+    blur = torch.arange(B) % 2 == 0
+    rgb = torch.arange(B) % 3 == 0
+    _same_on_card(lambda i, h, w, f, g, bl, rg: photometric.enhance(
+        i, h, w, f[:, 0], f[:, 1], f[:, 2], sigma, bl, g, rg,
+        blur_max_radius=mr, blur_sigma_max=3.0),
+        cuda_device, img, hs, ws, f, gains, blur, rgb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep_large", [False, True])
+def test_cleanup_on_card_matches_the_cpu_ties_included(cuda_device,
+                                                       keep_large):
+    from image_processor_pipeline_tpu_torch.ops import ccl
+
+    rng, img, hs, ws = _canvases(3, C=4)
+    img[..., 3] = torch.as_tensor(np.where(
+        rng.random(img.shape[:3]) > 0.45, 255, 0).astype(np.uint8)) \
+        * (img[..., 0] > 0)
+    img[1, ..., 3] = 0
+    img[1, 2:6, 7:11, 3] = 200     # two components of one size:
+    img[1, 3:7, 1:5, 3] = 255      # the smaller root index stays
+    img[2, ..., 3] = 0
+    _same_on_card(lambda i, h, w: ccl.cleanup_and_fit(
+        i, h, w, 12, keep_large_components=keep_large),
+        cuda_device, img, hs, ws)
+    out, bh, bw = ccl.cleanup_and_fit(img.to(cuda_device),
+                                      hs.to(cuda_device), ws.to(cuda_device),
+                                      12)
+    assert (int(bh[1]), int(bw[1])) == (4, 4)
+    assert bool((out[1, :4, :4, 3] == 200).all())
+    values = torch.tensor([[0, 3, 1, 3, 3], [5, 5, 5, 5, 5], [0, 0, 0, 0, 0]],
+                          device=cuda_device)
+    assert ccl.first_argmax(values).tolist() == [1, 0, 0]
+
+
+@pytest.mark.cuda
+def test_labels_and_sweep_counts_on_card_match_the_cpu(cuda_device,
+                                                        monkeypatch):
+    from image_processor_pipeline_tpu_torch.ops import ccl
+
+    fg = torch.as_tensor(np.random.default_rng(5).random((4, 96, 128)) < 0.55)
+    want, want_iters = ccl.label_components(fg, return_iters=True)
+    for every in (1, 4):
+        monkeypatch.setattr(ccl, "CHECK_EVERY", every)
+        got, iters = ccl.label_components(fg.to(cuda_device),
+                                          return_iters=True)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(iters.cpu(), want_iters)
+
+
+@pytest.mark.cuda
+def test_color_mask_and_crops_on_card_match_the_cpu(cuda_device):
+    from image_processor_pipeline_tpu_torch.ops import color
+
+    _, img, hs, ws = _canvases(7)
+    lowers = ((0, 0, 0), (35.0, 60.0, 60.0))
+    uppers = ((180, 255, 110.5), (85.0, 255.0, 255.0))
+    zones = ((0, 0, 0, 0), (4, 6, 2, 3))
+    _same_on_card(lambda i, h, w: color.color_mask_alpha(
+        i, h, w, lowers, uppers, zones), cuda_device, img, hs, ws)
+    _same_on_card(lambda i, h, w: geometry.border_crop(i, h, w, 1, 2, 3, 4),
+                  cuda_device, img, hs, ws)
+    _same_on_card(geometry.fit_crop, cuda_device, img, hs, ws)
+
+
+MASK_RANGES = [(0, 0, 0, 180, 255, 120), (20, 50, 50, 40, 255, 255)]
+
+
+def _run_new_steps(root, imgs, device):
+    """Pipelines C, D and E of the smoke run, at a small size."""
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
+                                                    ProcessingStep)
+    from image_processor_pipeline_tpu_torch.transforms import (
+        BorderCrop, ColorMaskTransparency, EnhanceImage, FitCrop, FusedChain,
+        KeepLargestComponent, fused)
+
+    jpgs = root / "jpgs"
+    jpgs.mkdir(parents=True)
+    for p in sorted(imgs.iterdir()):
+        Image.open(p).save(jpgs / f"{p.stem}.jpg", quality=90)
+    kw = {"device": device, "workers": 2}
+    pipe = ProcessingPipeline(root_dir=root)
+    pipe.add_step(ProcessingStep(
+        "mask", ColorMaskTransparency(), input_dirs=[imgs],
+        output_dirs=["mask"], seed=3,
+        options={"color_ranges_to_exclude_hsv": MASK_RANGES}, **kw))
+    pipe.add_step(ProcessingStep(
+        "clean", KeepLargestComponent(), output_dirs=["clean"], seed=3,
+        options={"min_component_size": 20}, **kw))
+    chain = ProcessingStep(
+        "chain", FusedChain([fused.Rotate(method="shear"), fused.Flip(),
+                             fused.ColorMask(MASK_RANGES), fused.Cleanup(20),
+                             fused.Enhance(0.5, 0.5)]),
+        input_dirs=[imgs], output_dirs=[root / "chain"], seed=5, **kw)
+    pipe.add_step(chain)
+    pipe.add_step(ProcessingStep(
+        "enhance", EnhanceImage(), input_dirs=[jpgs], output_dirs=["enhance"],
+        seed=4, pairing_method="sample", **kw))
+    pipe.add_step(ProcessingStep(
+        "border", BorderCrop(), output_dirs=["border"], seed=4,
+        options={"crop_margins": (0.1, 2, 0.05, 3)}, **kw))
+    pipe.add_step(ProcessingStep("fit", FitCrop(), output_dirs=["fit"],
+                                 seed=4, **kw))
+    return pipe.run(progress=False), chain
+
+
+@pytest.mark.cuda
+def test_mask_chain_and_crop_steps_on_card_match_the_cpu(cuda_device,
+                                                         tmp_path):
+    """Nothing in these steps depends on the card's trigonometry (the
+    chain's shift vectors come from the host): the card's files equal the
+    CPU's, and the chain launches the rotation kernel once a batch."""
+    imgs, _ = _engine_dataset(tmp_path)
+    kernels.reset_launch_counts()
+    counts, chain = _run_new_steps(tmp_path / "cuda", imgs, cuda_device)
+    assert [dict(c) for c in counts] == [{"Success": 12}] * 6
+    assert kernels.launch_counts["shear_rotate_packed"] \
+        == chain.metrics.batches >= 2
+    kernels.reset_launch_counts()
+    _run_new_steps(tmp_path / "cpu", imgs, "cpu")
+    assert kernels.launch_counts["shear_rotate_packed"] == 0
+    for d in ("mask", "clean", "chain", "enhance", "border", "fit"):
+        from PIL import Image
+
+        names = sorted(p.name for p in (tmp_path / "cuda" / d).iterdir())
+        assert names == sorted(p.name for p in (tmp_path / "cpu" / d).iterdir())
+        assert len(names) == 12
+        for name in names:
+            got = np.asarray(Image.open(tmp_path / "cuda" / d / name))
+            want = np.asarray(Image.open(tmp_path / "cpu" / d / name))
+            assert got.shape == want.shape and np.array_equal(got, want), \
+                (d, name)
+
+
+@pytest.mark.cuda
+def test_rotations_on_card_match_the_cpu(cuda_device, tmp_path):
+    """The shear method's vectors are computed on the host, so the step's
+    files on the card equal its files on the CPU."""
+    imgs, labels = _engine_dataset(tmp_path)
+    _run_steps(tmp_path / "cuda", imgs, labels, cuda_device)
+    _run_steps(tmp_path / "cpu", imgs, labels, "cpu")
+    got = _decoded(tmp_path / "cuda" / "rot")
+    want = _decoded(tmp_path / "cpu" / "rot")
+    assert sorted(got) == sorted(want) and len(got) == 48
+    for name in got:
+        assert np.array_equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+def test_empty_launch_runs_and_rejects_a_bad_grid(cuda_device):
+    from image_processor_pipeline_tpu_torch.utils import rev_probe
+
+    before = dict(kernels.launch_counts)
+    rev_probe.launch_empty(cuda_device)
+    rev_probe.launch_empty(cuda_device, 256)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == before   # not a move: not counted
+    with pytest.raises(RuntimeError):
+        rev_probe.launch_empty(cuda_device, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [3, 4])
+def test_bilinear_rotations_on_card(cuda_device, channels):
+    """The PIL-exact form is float64 arithmetic in a fixed order: the card
+    gives the CPU's bytes.  The float32 form of the engine depends on the
+    device's cos and sin: extents equal, pixels to 0.1 % of an item."""
+    rng = np.random.default_rng(channels)
+    img = np.zeros((4, 128, 128, channels), np.uint8)
+    img[:, :50, :70] = rng.integers(0, 256, (4, 50, 70, channels), np.uint8)
+    for angle in (30.0, 45.0, 90.0, 123.456, -17.25):
+        want = geometry.rotate_bilinear_exact(torch.as_tensor(img[0]), angle,
+                                              50, 70)
+        got = geometry.rotate_bilinear_exact(
+            torch.as_tensor(img[0], device=cuda_device), angle, 50, 70)
+        assert got[1:] == want[1:] and torch.equal(got[0].cpu(), want[0])
+    angles = torch.as_tensor(rng.uniform(1, 359, 4).astype(np.float32))
+    h, w = torch.full((4,), 50, dtype=torch.int32), \
+        torch.full((4,), 70, dtype=torch.int32)
+    want = geometry.rotate_expand(torch.as_tensor(img), h, w, angles,
+                                  "bilinear")
+    got = geometry.rotate_expand(*(t.to(cuda_device) for t in (
+        torch.as_tensor(img), h, w, angles)), "bilinear")
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+    assert (got[0].cpu() != want[0]).float().mean() <= 1e-3

@@ -16,6 +16,7 @@ from image_processor_pipeline_tpu_torch.ops import bbox as tbbox
 from image_processor_pipeline_tpu_torch.ops import color as tcolor
 from image_processor_pipeline_tpu_torch.ops import geometry as tgeo
 from image_processor_pipeline_tpu_torch.ops import photometric as tphoto
+from torch_port_data import blur_differs_under_jit, jax_box_weights
 
 ANGLES = np.asarray([0.0, 1.0, 44.99, 45.0, 45.01, 90.0, 135.0, 180.0,
                      270.0, 315.0, 358.9], np.float32)
@@ -314,3 +315,232 @@ def test_rotate_expand_nearest_matches_jax_eager(angle):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     h2, w2 = tgeo.rotated_size(_t(hs), _t(ws), _t(angles))
     assert h2.tolist() == got[1].tolist() and w2.tolist() == got[2].tolist()
+
+
+# -- filter bounds, masks with per-item extents -------------------------------
+
+def test_gimp_scale_and_rescale_filter_match_jax():
+    for bound in ((0, 0, 0), (360, 100, 100), (121, 30, 45.5), (7, 33.3, 1)):
+        assert tcolor.gimp_to_cv_hsv(bound) == jcolor.gimp_to_cv_hsv(bound)
+    for bad in ((361, 0, 0), (0, 101, 0), (0, 0, -1)):
+        with pytest.raises(ValueError, match="GIMP range"):
+            tcolor.gimp_to_cv_hsv(bad)
+    for filt, gimp in (((10, 20, 30, 180, 255, 255), False),
+                       ((100, 30, 45, 240, 100, 99.5), True),
+                       ((0, 0, 0, 360, 100, 100), True)):
+        assert tcolor.rescale_filter(filt, gimp) \
+            == jcolor.rescale_filter(filt, gimp)
+    with pytest.raises(ValueError, match="OpenCV range"):
+        tcolor.rescale_filter((0, 0, 0, 181, 255, 255))
+    with pytest.raises(ValueError, match=r"GIMP.*range"):
+        tcolor.rescale_filter((0, 0, 0, 180, 101, 50), True)
+
+
+@pytest.mark.parametrize("n_filters", [1, 2, 5])
+def test_color_mask_alpha_with_per_item_extents_matches_jax(n_filters):
+    rng = np.random.default_rng(30 + n_filters)
+    B, H, W = 6, 40, 56
+    img = rng.integers(0, 256, (B, H, W, 3), np.uint8)
+    hs = rng.integers(1, H + 1, B).astype(np.int32)
+    ws = rng.integers(1, W + 1, B).astype(np.int32)
+    lowers = rng.uniform(0, 120, (n_filters, 3)).astype(np.float32)
+    uppers = lowers + rng.uniform(20, 140, (n_filters, 3)).astype(np.float32)
+    zones = rng.integers(0, 12, (n_filters, 4)).astype(np.int32)
+    zones[0] = 0
+    want = np.asarray(jax.vmap(lambda im, h, w: jcolor.color_mask_alpha(
+        im, h, w, lowers, uppers, zones))(jnp.asarray(img), hs, ws))
+    got = tcolor.color_mask_alpha(_t(img), _t(hs), _t(ws), lowers, uppers,
+                                  zones).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0).any() and (got == 255).any()
+
+
+# -- F8: contrast and its mean on padded canvases -----------------------------
+
+def test_exact_mean_with_mask_matches_jax_on_ties():
+    rng = np.random.default_rng(6)
+    B, H, W = 8, 12, 20
+    lum = rng.integers(0, 256, (B, H, W)).astype(np.int32)
+    hs = rng.integers(1, H + 1, B).astype(np.int32)
+    ws = rng.integers(1, W + 1, B).astype(np.int32)
+    hs[0], ws[0] = 2, 1   # two pixels: means on .5 exactly
+    lum[0, :2, 0] = (10, 11)
+    mask = np.stack([np.asarray(jgeo.valid_mask(h, w, H, W))
+                     for h, w in zip(hs, ws)])
+    n = np.maximum(mask.reshape(B, -1).sum(1), 1)
+    want = [int(jphoto.exact_mean_round_half_up(
+        jnp.asarray(l), int(k), mask=jnp.asarray(m)))
+        for l, k, m in zip(lum, n, mask)]
+    got = tphoto.exact_mean_round_half_up(_t(lum), _t(n), _t(mask)).tolist()
+    assert got == want and got[0] == 11
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_contrast_with_extents_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    B, H, W = 6, 32, 48
+    img = rng.integers(0, 256, (B, H, W, 3), np.uint8)
+    hs = rng.integers(1, H + 1, B).astype(np.int32)
+    ws = rng.integers(1, W + 1, B).astype(np.int32)
+    hs[0], ws[0] = H, W
+    fac = rng.uniform(0.7, 1.3, B).astype(np.float32)
+    want = np.stack([np.asarray(jphoto.contrast(jnp.asarray(im), f, h, w))
+                     for im, f, h, w in zip(img, fac, hs, ws)])
+    got = tphoto.contrast(_t(img), _t(fac), _t(hs), _t(ws)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # without extents the whole canvas counts, as before
+    np.testing.assert_array_equal(
+        tphoto.contrast(_t(img), _t(fac)).numpy(),
+        np.stack([np.asarray(jphoto.contrast(jnp.asarray(im), f))
+                  for im, f in zip(img, fac)]))
+
+
+# -- gaussian_blur ------------------------------------------------------------
+
+def blur_sigmas(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        rng.uniform(0.5, 3.0, n).astype(np.float32),
+        np.linspace(0.5, 3.0, 1001, dtype=np.float32),
+        np.asarray([0.5, 1.0, 1.5, 2.0, 3.0], np.float32)])
+
+
+def test_box_weights_equal_the_eager_jax_constants_on_200000_sigmas():
+    sig = blur_sigmas(200_000)
+    with jax.disable_jit():
+        want = [np.asarray(v) for v in jax_box_weights(sig)]
+    got = tphoto.box_weights(sig)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.astype(g.dtype))
+    # the tap weights of every sigma sum to 2**24 (or one less: fw halves)
+    r, ww, fw = got
+    total = (2 * r + 1) * ww + 2 * fw
+    assert set(np.unique((1 << 24) - total)) <= {0, 1}
+
+
+def test_box_weights_against_jitted_jax_is_a_documented_delta():
+    """F5: under jit XLA computes sigma^2/3 as a multiply by a reciprocal
+    and contracts sigma2 - (l+1)^2 into a fused multiply-add, so ww (and fw
+    with it) moves by at most 2 for a few percent of sigmas; r never
+    moves.  Items of a jitted JAX run whose sigma is one of these are the
+    ones the engine tests name."""
+    sig = blur_sigmas(200_000)
+    jr, jww, jfw = (np.asarray(v) for v in jax.jit(jax_box_weights)(sig))
+    r, ww, fw = tphoto.box_weights(sig)
+    np.testing.assert_array_equal(r, jr)
+    delta = np.abs(ww - jww.astype(np.int64))
+    assert delta.max() <= 2
+    assert 0.01 < (delta > 0).mean() < 0.10
+    named = blur_differs_under_jit(sig)
+    assert ((delta > 0) <= named).all() and named.mean() < 0.10
+
+
+def test_box_radius_bound_matches_jax():
+    for sigma in (0.5, 1.0, 2.9, 3.0, 5.0, 12.5):
+        for passes in (1, 3, 4):
+            assert tphoto.box_radius_bound(sigma, passes) \
+                == jphoto.box_radius_bound(sigma, passes)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_gaussian_blur_matches_jax_eager_on_padded_canvases(seed):
+    rng = np.random.default_rng(seed)
+    B, H, W = 6, 40, 56
+    img = rng.integers(0, 256, (B, H, W, 3), np.uint8)
+    hs = rng.integers(1, H + 1, B).astype(np.int32)
+    ws = rng.integers(1, W + 1, B).astype(np.int32)
+    hs[0], ws[0] = 1, 1
+    sig = rng.uniform(0.5, 3.0, B).astype(np.float32)
+    mr = tphoto.box_radius_bound(3.0)
+    with jax.disable_jit():
+        want = np.stack([np.asarray(jphoto.gaussian_blur(
+            jnp.asarray(im), s, max_radius=mr, h=h, w=w, sigma_max=3.0))
+            for im, s, h, w in zip(img, sig, hs, ws)])
+        whole = np.stack([np.asarray(jphoto.gaussian_blur(
+            jnp.asarray(im), s)) for im, s in zip(img, sig)])
+    got = tphoto.gaussian_blur(_t(img), sig, max_radius=mr, h=_t(hs),
+                               w=_t(ws), sigma_max=3.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # no extents, the default window, sigma as a CPU tensor
+    np.testing.assert_array_equal(
+        tphoto.gaussian_blur(_t(img), _t(sig)).numpy(), whole)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 70), (64, 48), (57, 96)])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_gaussian_blur_equals_pillow(shape, channels):
+    """The independent check: PIL.ImageFilter.GaussianBlur itself, byte for
+    byte, on seeded images and sigmas in and beyond the enhance range."""
+    from PIL import Image, ImageFilter
+
+    rng = np.random.default_rng(shape[0] * 100 + shape[1] + channels)
+    sigmas = [0.5, 1.0, 2.0, 3.0, 5.0, 8.25] + [
+        float(np.float32(s)) for s in rng.uniform(0.5, 3.0, 12)]
+    img = rng.integers(0, 256, (len(sigmas), *shape, channels), np.uint8)
+    want = np.stack([np.asarray(Image.fromarray(
+        im[..., 0] if channels == 1 else im).filter(
+            ImageFilter.GaussianBlur(s))).reshape(*shape, channels)
+        for im, s in zip(img, sigmas)])
+    got = tphoto.gaussian_blur(_t(img), np.asarray(sigmas, np.float32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() != img).any() or shape == (1, 1)
+
+
+def test_gaussian_blur_validates_its_tap_window():
+    img = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="sigma_max=3.0 needs"):
+        tphoto.gaussian_blur(img, 1.0, max_radius=2, sigma_max=3.0)
+    with pytest.raises(ValueError, match="sigma=20.0 needs"):
+        tphoto.gaussian_blur(img, np.float32([20.0]))
+    with pytest.raises(ValueError):
+        jphoto.gaussian_blur(jnp.zeros((8, 8, 3), jnp.uint8), 1.0,
+                             max_radius=2, sigma_max=3.0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_enhance_matches_jax_eager(seed):
+    """The whole enhance of a batch, blur and gains per item as flagged."""
+    rng = np.random.default_rng(seed)
+    B, H, W = 8, 32, 48
+    img = rng.integers(0, 256, (B, H, W, 3), np.uint8)
+    hs = rng.integers(4, H + 1, B).astype(np.int32)
+    ws = rng.integers(4, W + 1, B).astype(np.int32)
+    f = rng.uniform(0.7, 1.3, (B, 3)).astype(np.float32)
+    sig = rng.uniform(0.5, 3.0, B).astype(np.float32)
+    gains = rng.uniform(0.75, 1.25, (B, 3)).astype(np.float32)
+    blur = np.arange(B) % 2 == 0
+    rgb = np.arange(B) % 4 < 2
+    mr = tphoto.box_radius_bound(3.0)
+    with jax.disable_jit():
+        want = np.stack([np.asarray(jphoto.enhance(
+            jnp.asarray(img[i]), hs[i], ws[i], f[i, 0], f[i, 1], f[i, 2],
+            sig[i], bool(blur[i]), jnp.asarray(gains[i]), bool(rgb[i]),
+            blur_max_radius=mr, blur_sigma_max=3.0)) for i in range(B)])
+    got = tphoto.enhance(_t(img), _t(hs), _t(ws), _t(f[:, 0]), _t(f[:, 1]),
+                         _t(f[:, 2]), sig, _t(blur), _t(gains), _t(rgb),
+                         blur_max_radius=mr, blur_sigma_max=3.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_border_crop_matches_jax():
+    rng = np.random.default_rng(9)
+    B, H, W = 6, 32, 48
+    img = rng.integers(1, 256, (B, H, W, 3), np.uint8)
+    hs = rng.integers(12, H + 1, B).astype(np.int32)
+    ws = rng.integers(12, W + 1, B).astype(np.int32)
+    yy, xx = np.mgrid[0:H, 0:W]
+    img *= ((yy[None] < hs[:, None, None])
+            & (xx[None] < ws[:, None, None]))[..., None]
+    m = rng.integers(0, 5, (B, 4)).astype(np.int32)
+    want = jax.vmap(jgeo.border_crop)(jnp.asarray(img), hs, ws, m[:, 0],
+                                      m[:, 1], m[:, 2], m[:, 3])
+    got = tgeo.border_crop(_t(img), _t(hs), _t(ws), *(_t(m[:, k])
+                                                      for k in range(4)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the same margins for every item, as plain numbers
+    got = tgeo.border_crop(_t(img), _t(hs), _t(ws), 1, 2, 3, 4)
+    want = jax.vmap(lambda im, h, w: jgeo.border_crop(im, h, w, 1, 2, 3, 4))(
+        jnp.asarray(img), hs, ws)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -134,3 +134,51 @@ def test_randint_with_per_item_bounds_after_split_matches_jax(jkeys):
         trandom.randint(keys[:, 0], (), lo, top), np.asarray(wx))
     np.testing.assert_array_equal(
         trandom.randint(keys[:, 1], (), lo, top), np.asarray(wy))
+
+
+# -- the fused chain's per-stage keys and Bernoulli draws ---------------------
+
+@pytest.mark.parametrize("data", [0, 1, 6, 2**31, 2**32 - 1])
+def test_fold_in_matches_jax(jkeys, data):
+    """fold_in(key, i), the key of stage i of a fused chain, for a batch of
+    keys at once: bit for bit against the jitted jax.random.fold_in."""
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda k: jax.random.fold_in(k, np.uint32(data))))(jkeys))
+    got = trandom.fold_in(jkeys, data)
+    assert got.shape == jkeys.shape and got.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fold_in_takes_one_datum_a_key(jkeys):
+    data = np.random.default_rng(3).integers(0, 2**32, len(SEEDS),
+                                             dtype=np.uint64)
+    want = np.asarray(jax.jit(jax.vmap(jax.random.fold_in))(
+        jkeys, data.astype(np.uint32)))
+    np.testing.assert_array_equal(trandom.fold_in(jkeys, data), want)
+    # a chain of fold_ins from PRNGKey(seed), as FusedChain derives them
+    want = np.asarray(jax.jit(jax.vmap(lambda s: jax.random.fold_in(
+        jax.random.fold_in(jax.random.PRNGKey(s), 2), 5)))(SEEDS))
+    got = trandom.fold_in(trandom.fold_in(trandom.PRNGKey(SEEDS), 2), 5)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("num", [5, 7])
+def test_split_shapes_of_the_enhance_draws(jkeys, num):
+    """split(key, 7) (fused.py's Enhance stage) and split(key, 5) (the
+    enhance step), jitted as the engines run them."""
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda k: jax.random.split(k, num)))(jkeys))
+    got = trandom.split(jkeys, num)
+    assert got.shape == (len(SEEDS), num, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3, 0.5, 0.999, 1.0])
+def test_bernoulli_is_uniform_below_p_in_float32(jkeys, p):
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda k: jax.random.uniform(k, ()) < p))(jkeys))
+    got = trandom.bernoulli(jkeys, p)
+    assert got.dtype == np.bool_ and got.shape == (len(SEEDS),)
+    np.testing.assert_array_equal(got, want)
+    if 0 < p < 1:
+        assert abs(got.mean() - p) < 0.02

@@ -1,8 +1,12 @@
 """Datasets for the port's engine tests: small PNG images with YOLO labels,
-made from a numpy seed in a temporary directory."""
+made from a numpy seed in a temporary directory; and the helpers that hold
+one engine's output directory against the other's."""
 
+import json
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 from PIL import Image
 
@@ -52,3 +56,73 @@ def make_dataset(root: Path, n: int, seed: int,
         (root / "labels" / f"im_{i:03d}.txt").write_text(
             make_labels(rng, int(rng.integers(1, 4)), h, w))
     return root / "imgs", root / "labels"
+
+
+def reports(root):
+    """Every step's report entries under ``root`` with the run's root taken
+    out, by report file name."""
+    out = {}
+    for path in sorted(Path(root).rglob("*.json")):
+        if path.name.endswith(".metrics.json"):
+            continue
+        entries = json.loads(path.read_text().replace(str(root), "ROOT"))
+        out[path.name] = sorted(entries, key=lambda e: e["inputs"])
+    return out
+
+
+def assert_same_files(jdir, tdir, n_files, named=(), levels=1):
+    """The two directories hold the same ``n_files`` names; label files are
+    equal as text, images equal in shape and decoded pixels (file bytes are
+    not compared: the encoders may differ).  Images in ``named`` (items a
+    documented delta touches) must agree in shape, to ``levels`` grey
+    levels everywhere and in 95 % of their values; with ``levels=None``
+    (a lossy re-encoding of such an item) in shape only.  Returns the
+    names."""
+    names = sorted(p.name for p in Path(jdir).iterdir() if p.is_file())
+    assert sorted(p.name for p in Path(tdir).iterdir()
+                  if p.is_file()) == names
+    assert len(names) == n_files, names
+    for name in names:
+        if name.endswith(".txt"):
+            assert (tdir / name).read_text() == (jdir / name).read_text()
+            continue
+        got = np.asarray(Image.open(tdir / name))
+        want = np.asarray(Image.open(jdir / name))
+        assert got.shape == want.shape, name
+        if name in named and levels is None:
+            continue
+        if name in named:
+            assert np.abs(got.astype(int) - want).max() <= levels, name
+            assert (got == want).mean() >= 0.95, name
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+    return names
+
+
+def jax_box_weights(sigma, passes=3, max_radius=12):
+    """The constants of the JAX gaussian_blur (photometric.py:183-193), its
+    lines as they stand, to be run eagerly or under jit."""
+    sig = jnp.maximum(jnp.asarray(sigma, jnp.float32), 1e-6)
+    sigma2 = sig * sig / passes
+    L = jnp.sqrt(12.0 * sigma2 + 1.0)
+    l = jnp.floor((L - 1.0) / 2.0)
+    a = (2 * l + 1) * (l * (l + 1) - 3 * sigma2)
+    a = a / (6 * (sigma2 - (l + 1) * (l + 1)))
+    fr = l + a
+    r = jnp.minimum(fr.astype(jnp.int32), max_radius)
+    ww = (jnp.float32(1 << 24) / (fr * 2 + 1)).astype(jnp.uint32)
+    fw = (jnp.uint32(1 << 24)
+          - (2 * r + 1).astype(jnp.uint32) * ww) // jnp.uint32(2)
+    return r, ww, fw
+
+
+def blur_differs_under_jit(sigmas):
+    """F5: for each sigma, whether the jitted JAX blur's box weights differ
+    from the eager ones (which are Pillow's and the port's).  A blurred
+    item of a jitted JAX run with such a sigma may differ from the port's
+    by one grey level on a few percent of its values."""
+    sigmas = np.asarray(sigmas, np.float32)
+    with jax.disable_jit():
+        eager = [np.asarray(v) for v in jax_box_weights(sigmas)]
+    jitted = [np.asarray(v) for v in jax.jit(jax_box_weights)(sigmas)]
+    return np.any([e != j for e, j in zip(eager, jitted)], axis=0)
