@@ -19,7 +19,8 @@ cluster sizes and the rotation kernel's two paths in turns,
 and the chains with CUDA events, profiles one launch of each kernel and
 the chains' device work, counts
 how often the card's float32 tan/sin move a shift vector against the
-CPU's, holds the probe kernel's four moves (utils/rev_probe.py) against
+CPU's and holds each chain kernel mode on the card against the same mode
+on the CPU over the angles that move, holds the probe kernel's four moves (utils/rev_probe.py) against
 torch.flip, torch.roll and clone, drives the probe's own entry point and
 times a kernel that does nothing (the launch-alone floor under the moves),
 and drives the engine: over a dataset of 640 x 480 PNGs with YOLO labels
@@ -37,10 +38,17 @@ rotation kernel once a batch) and E (EnhanceImage, BorderCrop, FitCrop
 over JPEG copies of the crops), with one batch of every new step held
 byte for byte against the same batch on the CPU, D's batch against the
 plain twin in the kernel's place, and the connected-component sweeps and
-host read-backs a batch printed.  It prints the card's name and power
-limit, a JSON line of the kernels and, last, a JSON status line.  Any failed phase raises, so the
-status line is printed only when every phase passed.  Without a CUDA card
-it exits non-zero.
+host read-backs a batch printed; then BASELINE.json's config 4 (RGBA
+overlays pasted onto JPEG copies of the dataset's images, then a border
+crop; and OverlaysBorderCrop), config 5 (a clip written with cv2, its
+frames extracted, then FusedChain([Rotate(shear), Flip, Enhance]) on 896
+px canvases) and the composites RotationsSymmetries and RotationsChain
+with method="shear", each step's launches read on its own, one batch of
+every new step held against the same batch on the CPU, and the rotation
+kernel alone at the frames' canvas.  It prints the card's name and power
+limit, a JSON line of the kernels and, last, a JSON status line.  Any
+failed phase raises, so the status line is printed only when every phase
+passed.  Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -85,6 +93,14 @@ ENGINE_STEP_ITEMS = 64
 # two HSV ranges (OpenCV scale) that mask a real share of the dataset's
 # gradients: the dark pixels and the green hues
 ENGINE_MASK_RANGES = [(0, 0, 0, 180, 255, 110), (35, 60, 60, 85, 255, 255)]
+# config 4 pastes one overlay for every four images of the dataset (as
+# benchmarks/eval_configs.py does), config 5 takes a clip of this many
+# frames, and the composites this many of pipeline A's crops (32 took 17
+# s, nearly all of it PNG encoding: RotationsSymmetries writes 20 files an
+# item)
+OVERLAYS = ENGINE_IMAGES // 4
+CLIP_FRAMES, CLIP_W, CLIP_H = 24, 640, 480
+COMPOSITE_ITEMS = 16
 
 
 def kernel_inputs(SIN, S, B, seed, dev):
@@ -213,9 +229,11 @@ def plain_rotate_batch(images, angles, shifts=None):
 
 def shift_vector_deltas(geometry, dev, n=200_000, S=512, chunk=20_000):
     """F6: angles whose (quad, sh1, sh2) from geometry.shear_params differ
-    between the card and the CPU, over n angles from uniform(1, 359)."""
+    between the card and the CPU, over n angles from uniform(1, 359).
+    Returns (counts, the angles that move as float32 [k])."""
     angles = np.random.default_rng(6).uniform(1, 359, n).astype(np.float32)
     diff = {"quad": 0, "sh1": 0, "sh2": 0, "any": 0, "max_step": 0}
+    moved = []
     for i in range(0, n, chunk):
         a = torch.as_tensor(angles[i:i + chunk])
         cpu = geometry.shear_params(a, S)
@@ -223,11 +241,40 @@ def shift_vector_deltas(geometry, dev, n=200_000, S=512, chunk=20_000):
         rows = [(c != g).reshape(len(a), -1).any(1) for c, g in zip(cpu, gpu)]
         for name, r in zip(("quad", "sh1", "sh2"), rows):
             diff[name] += int(r.sum())
-        diff["any"] += int((rows[0] | rows[1] | rows[2]).sum())
+        any_row = rows[0] | rows[1] | rows[2]
+        diff["any"] += int(any_row.sum())
+        moved.append(a[any_row].numpy())
         for c, g in zip(cpu[1:], gpu[1:]):
             diff["max_step"] = max(diff["max_step"],
                                    int((c - g).abs().max()))
-    return diff
+    return diff, np.concatenate(moved)
+
+
+def chain_modes_card_against_cpu(chains, angles, dev):
+    """F6 for the chain: AugmentChain's batch at 640 -> 512 with the given
+    angles (in place of the drawn ones) in each kernel mode on the card,
+    against the same mode on the CPU, byte for byte.  The shift vectors
+    come from the host's angles, so the card's tanf/sinf cannot move
+    them."""
+    real = chains._crop_params
+
+    def crop_params(*args, **kw):
+        y0, x0, _ = real(*args, **kw)
+        return y0, x0, angles[:len(y0)]
+
+    images, xywhn, seeds = chains.AugmentChain(
+        640, device=dev).example_inputs(len(angles))
+    cpu_images = images.cpu()
+    chains._crop_params = crop_params
+    try:
+        for mode in ("cuda_full", "cuda_fused", "cuda_shear"):
+            check_equal(
+                chains.augment_chain(images, xywhn, seeds,
+                                     rotation=mode).cpu(),
+                chains.augment_chain(cpu_images, xywhn, seeds, rotation=mode),
+                f"F6: chain {mode} on the card != on the CPU")
+    finally:
+        chains._crop_params = real
 
 
 def sass_counts(so_path):
@@ -417,7 +464,7 @@ def mask_chain_crop_pipelines(root, dev, card, workers, launches):
     kernel's measurements at the Rotate stage's shape."""
     from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
                                                     ProcessingStep, kernels)
-    from image_processor_pipeline_tpu_torch.ops import ccl, geometry, rotate
+    from image_processor_pipeline_tpu_torch.ops import ccl
     from image_processor_pipeline_tpu_torch.transforms import (
         BorderCrop, ColorMaskTransparency, EnhanceImage, FitCrop,
         FusedChain, KeepLargestComponent, fused)
@@ -593,32 +640,313 @@ def mask_chain_crop_pipelines(root, dev, card, workers, launches):
           "byte")
 
     # the kernel alone at the Rotate stage's shape, one batch of 8
-    S = chain_on_card["image"].shape[1]
-    rng = np.random.default_rng(8)
-    simgs = torch.as_tensor(rng.integers(0, 256, (8, S, S, 4), np.uint8),
-                            device=dev)
-    sshifts = geometry.shear_params(torch.as_tensor(
+    return rotation_kernel_alone(
+        chain_on_card["image"].shape[1], dev, card, "the Rotate stage",
+        counts["shear_rotate_packed"], k)
+
+
+def rotation_kernel_alone(S, dev, card, where, launches_a_step, items):
+    """K2 alone on a batch of 8 random RGBA canvases of S, held against its
+    plain twin: its device ms a launch, its byte bound and the plain
+    twin's ms a call."""
+    from image_processor_pipeline_tpu_torch.ops import geometry, rotate
+
+    rng = np.random.default_rng(S)
+    imgs = torch.as_tensor(rng.integers(0, 256, (8, S, S, 4), np.uint8),
+                           device=dev)
+    shifts = geometry.shear_params(torch.as_tensor(
         rng.uniform(1, 359, 8).astype(np.float32), device=dev), S)
-    check_equal(rotate.launch_shear(simgs, *sshifts),
-                geometry.rotate_square_shear_by(simgs, *sshifts),
-                "shear_rotate_packed at the Rotate stage's shape")
-    stage_kernel = {
+    err, direct = count_direct_tiles(
+        rotate.kernels, dev, lambda: check_equal(
+            rotate.launch_shear(imgs, *shifts),
+            geometry.rotate_square_shear_by(imgs, *shifts),
+            f"shear_rotate_packed at {where}'s shape"))
+    if direct:
+        raise AssertionError(f"shear_rotate_packed at {where}'s shape: "
+                             f"{direct} direct tiles")
+    alone = {
         "shape": [8, S, S, 4],
-        "ms": device_ms(lambda: rotate.launch_shear(simgs, *sshifts)),
+        "ms": device_ms(lambda: rotate.launch_shear(imgs, *shifts)),
         "plain_ms": statistics.median(time_calls(
-            lambda i: geometry.rotate_square_shear_by(simgs, *sshifts),
+            lambda i: geometry.rotate_square_shear_by(imgs, *shifts),
             calls=5, windows=3)),
         "bound_ms": rotate_bytes(S, 8, 4) / HBM_BYTES_PER_S * 1e3,
-        "launches_a_step": counts["shear_rotate_packed"]}
-    print(f"shear_rotate_packed at the Rotate stage's shape "
-          f"{stage_kernel['shape']}: kernel {stage_kernel['ms']:.4f} ms "
-          f"of device time a launch, bound "
-          f"{stage_kernel['bound_ms']:.4f} ms "
+        "launches_a_step": launches_a_step, "max_abs_err": err}
+    print(f"shear_rotate_packed at {where}'s shape {alone['shape']}: "
+          f"== plain, 0 direct tiles; kernel {alone['ms']:.4f} ms of device "
+          f"time a launch, bound {alone['bound_ms']:.4f} ms "
           f"({rotate_bytes(S, 8, 4)} bytes at 3.35 TB/s), plain "
-          f"{stage_kernel['plain_ms']:.4f} ms a call, "
-          f"{stage_kernel['launches_a_step']} launches a step of {k} "
-          f"images; card {card}")
-    return stage_kernel
+          f"{alone['plain_ms']:.4f} ms a call, {launches_a_step} launches "
+          f"a step of {items} items; card {card}")
+    return alone
+
+
+def write_overlays(directory, n, seed):
+    """``n`` RGBA overlays of 80 x 80 as benchmarks/eval_configs.py makes
+    them: an opaque square of one colour in a transparent frame."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    directory.mkdir(parents=True)
+    for i in range(n):
+        ov = np.zeros((80, 80, 4), np.uint8)
+        ov[10:70, 10:70] = [*rng.integers(0, 256, 3), 255]
+        Image.fromarray(ov).save(directory / f"ov{i:03d}.png")
+    return directory
+
+
+def write_clip(directory, n, seed):
+    """A clip of ``n`` CLIP_W x CLIP_H frames (gradients, a moving block
+    and noise) written with cv2: mp4v, or MJPG in an .avi where this cv2
+    cannot write mp4v; raises when it writes neither."""
+    import cv2
+
+    directory.mkdir(parents=True)
+    for name, fourcc in (("clip.mp4", "mp4v"), ("clip.avi", "MJPG")):
+        path = directory / name
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc),
+                                 10, (CLIP_W, CLIP_H))
+        if writer.isOpened():
+            break
+        writer.release()
+        path.unlink(missing_ok=True)
+    else:
+        raise RuntimeError("cv2 writes neither mp4v nor MJPG here")
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:CLIP_H, 0:CLIP_W]
+    for i in range(n):
+        frame = np.stack([(yy // 2 + 7 * i) % 256, (xx // 3) % 256,
+                          (xx // 5 + yy // 4 + 11 * i) % 256], -1)
+        frame = (frame + rng.integers(0, 24, frame.shape)).astype(np.uint8)
+        y, x = 10 * i, 20 * i
+        frame[y:y + 120, x:x + 160] = rng.integers(0, 256, 3)
+        writer.write(np.ascontiguousarray(frame[..., ::-1]))  # BGR
+    writer.release()
+    return path, fourcc
+
+
+def overlay_video_pipelines(root, dev, card, workers, launches):
+    """BASELINE.json config 4 (overlays over JPEG copies of the dataset's
+    images, then a border crop; and OverlaysBorderCrop), config 5 (frames
+    of a clip into FusedChain([Rotate(shear), Flip, Enhance])) and the
+    composites RotationsSymmetries and RotationsChain over pipeline A's
+    crops, all on ``dev``, with their checks; adds the rotation kernel's
+    launches to ``launches`` and returns the kernel's measurements at the
+    frames' canvas."""
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
+                                                    ProcessingStep, kernels)
+    from image_processor_pipeline_tpu_torch.transforms import (
+        BorderCrop, FusedChain, OverlaysBorderCrop, PasteOverlayOntoBackground,
+        RotationsChain, RotationsSymmetries, frame_extraction, fused)
+
+    common = {"workers": workers, "save_log": True}
+    margins = {"crop_margins": (0.05, 0.05, 0.05, 0.05)}
+    comp_options = {"method": "shear", "num_rotations": ENGINE_ROTATIONS}
+    crops_dir = root / "A" / "crops" / "imgs"
+    t0 = time.perf_counter()
+    ov_dir = write_overlays(root / "data" / "overlays", OVERLAYS, 41)
+    clip, fourcc = write_clip(root / "data" / "video", CLIP_FRAMES, 42)
+    print(f"overlay and video data: {OVERLAYS} RGBA overlays of 80 x 80, a "
+          f"{fourcc} clip of {CLIP_FRAMES} frames of {CLIP_W} x {CLIP_H} "
+          f"({clip.stat().st_size} bytes) in {time.perf_counter() - t0:.1f} "
+          f"s")
+
+    pipe_o = ProcessingPipeline(root_dir=root / "O")   # config 4
+    pipe_o.add_step(ProcessingStep(
+        "backgrounds", save_as_jpg, input_dirs=[root / "data" / "imgs"],
+        output_dirs=["bg"], **common))
+    pipe_o.add_step(ProcessingStep(
+        "paste", PasteOverlayOntoBackground(), input_dirs=[ov_dir, "bg"],
+        output_dirs=["paste/imgs", "paste/labels"], pairing_method="modulo",
+        seed=31, fixed_input=True, device=dev, **common))
+    pipe_o.add_step(ProcessingStep(
+        "border_crop4", BorderCrop(), input_dirs=["paste/imgs"],
+        output_dirs=["crop"], seed=32, fixed_input=True, options=margins,
+        device=dev, **common))
+    pipe_o.add_step(ProcessingStep(
+        "overlays_border_crop", OverlaysBorderCrop(),
+        input_dirs=[ov_dir, "bg"], output_dirs=["ob/imgs", "ob/labels"],
+        pairing_method="modulo", seed=31, fixed_input=True, options=margins,
+        device=dev, **common))
+    video_chain = FusedChain([fused.Rotate(method="shear"), fused.Flip(),
+                              fused.Enhance()])
+    pipe_v = ProcessingPipeline(root_dir=root / "V")   # config 5
+    pipe_v.add_step(ProcessingStep(
+        "frames", frame_extraction, input_dirs=[clip.parent],
+        output_dirs=["frames"], options={"file_basename": "clip"},
+        **common))
+    pipe_v.add_step(ProcessingStep(
+        "video_chain", video_chain,
+        input_dirs=[f"frames/{clip.stem}/0-raw"], output_dirs=["aug"],
+        seed=33, fixed_input=True, device=dev, **common))
+    tail = [fused.Flip(), fused.ColorMask(ENGINE_MASK_RANGES),
+            fused.Enhance()]
+    pipe_r = ProcessingPipeline(root_dir=root / "R")   # the composites
+    pipe_r.add_step(ProcessingStep(
+        "rotations_symmetries", RotationsSymmetries(),
+        input_dirs=[crops_dir], output_dirs=["rotsym"], seed=34,
+        sample_k=COMPOSITE_ITEMS, options=comp_options, device=dev,
+        **common))
+    pipe_r.add_step(ProcessingStep(
+        "rotations_chain", RotationsChain(tail), input_dirs=[crops_dir],
+        output_dirs=["rotchain"], seed=35, sample_k=COMPOSITE_ITEMS,
+        fixed_input=True, options=comp_options, device=dev, **common))
+
+    # each step alone, its launch counts set to 0 just before and read
+    # just after: the overlay steps launch no kernel, the others the
+    # rotation kernel once a batch, with no direct tile
+    events = {}
+
+    def run_step(pipe, index, profiled=False):
+        step = pipe.steps[index]
+
+        def run():
+            return pipe.run(from_step_index=index, only_one=True,
+                            progress=False)
+
+        (result, counts), direct = count_direct_tiles(
+            kernels, dev, lambda: drive(
+                kernels, None, (lambda: profiled_step(run)) if profiled
+                else run))
+        if profiled:
+            events[step.name] = result
+        rotates = step.name in ("video_chain", "rotations_symmetries",
+                                "rotations_chain")
+        want = {name: 0 for name in counts} | (
+            {"shear_rotate_packed": step.metrics.batches} if rotates else {})
+        if counts != want or direct:
+            raise AssertionError(f"step {step.name}: launch counts {counts},"
+                                 f" expected {want}; direct tiles {direct}")
+        if rotates:
+            launches["shear_rotate_packed"] += counts["shear_rotate_packed"]
+            print(f"step {step.name}: shear_rotate_packed launched "
+                  f"{counts['shear_rotate_packed']} times, once for each of "
+                  f"its {step.metrics.batches} batches; direct tiles "
+                  f"{direct}")
+        return step
+
+    t0 = time.perf_counter()
+    steps = [run_step(pipe_o, i) for i in range(4)]
+    steps += [run_step(pipe_v, 0), run_step(pipe_v, 1, profiled=True)]
+    steps += [run_step(pipe_r, 0), run_step(pipe_r, 1)]
+    phase_s = time.perf_counter() - t0
+    n_ov, n_bg = OVERLAYS, ENGINE_IMAGES
+    slots = ENGINE_ROTATIONS + 1
+    for step, items in zip(steps, (n_bg, n_ov, n_ov, n_ov, 1, CLIP_FRAMES,
+                                   COMPOSITE_ITEMS, COMPOSITE_ITEMS)):
+        require_success(step, items)
+        print(step_line(step, card))
+    files = {f"{pipe}/{name}": count_files(root / pipe / name, n, name)
+             for pipe, name, n in (
+                 ("O", "bg", n_bg), ("O", "paste/imgs", n_ov),
+                 ("O", "paste/labels", n_ov), ("O", "crop", n_ov),
+                 ("O", "ob/imgs", n_ov), ("O", "ob/labels", n_ov),
+                 ("V", f"frames/{clip.stem}/0-raw", CLIP_FRAMES),
+                 ("V", "aug", CLIP_FRAMES),
+                 ("R", "rotsym", COMPOSITE_ITEMS * slots * 4),
+                 ("R", "rotchain", COMPOSITE_ITEMS * slots))}
+    print(f"files of configs 4, 5 and the composites: {files} in "
+          f"{phase_s:.1f} s")
+    chain_step = steps[5]
+    line, by_name = idle_line(chain_step, events[chain_step.name], card)
+    print(line)
+    if not any("shear_tile_kernel" in name for name in by_name):
+        raise AssertionError("profiler saw no shear_tile_kernel in the "
+                             "video chain")
+
+    # outputs are not degenerate: each composite differs from its
+    # background inside its label's box far more than outside it; the
+    # fused crop is the unfused one's size with the same label; rotated
+    # frames and slots differ from their sources
+    o = root / "O"
+    inside, outside = [], []
+    for log in pipe_o.steps[1].process_logs:
+        bg_path = Path(log["inputs"][1])
+        name = f"{Path(log['inputs'][0]).stem}{bg_path.suffix}"
+        label = (o / "paste/labels" / f"{Path(name).stem}.txt").read_text()
+        if label.endswith("\n") or label != (
+                o / "ob/labels" / f"{Path(name).stem}.txt").read_text():
+            raise AssertionError(f"config 4: label of {name}: {label!r}")
+        cx, cy, w, h = (float(v) for v in label.split()[1:])
+        got = np.asarray(Image.open(o / "paste/imgs" / name)).astype(int)
+        bg = np.asarray(Image.open(bg_path)).astype(int)
+        H, W = bg.shape[:2]
+        box = np.zeros((H, W), bool)
+        box[int((cy - h / 4) * H):int((cy + h / 4) * H),
+            int((cx - w / 4) * W):int((cx + w / 4) * W)] = True
+        if not (0 < w <= 1 and 0 < h <= 1) or not box.any():
+            raise AssertionError(f"config 4: {name}: box {label!r}")
+        diff = np.abs(got - bg).mean(-1)
+        inside.append(float(diff[box].mean()))
+        outside.append(float(diff[~box].mean()))
+        if Image.open(o / "ob/imgs" / name).size \
+                != Image.open(o / "crop" / name).size:
+            raise AssertionError(f"config 4: {name}: the fused crop's size "
+                                 f"is not the unfused one's")
+    if not np.median(inside) > 4 * np.median(outside):
+        raise AssertionError(f"config 4: composites hardly differ from their "
+                             f"backgrounds: inside {inside}, outside "
+                             f"{outside}")
+    frames = sorted((root / "V/aug").iterdir())
+    for p in frames:
+        a = np.asarray(Image.open(p))
+        if a.shape[2] != 4 or not ((a[..., 3] == 0).any()
+                                   and (a[..., 3] == 255).any()):
+            raise AssertionError(f"config 5: {p.name} is degenerate")
+    comp_same = 0
+    for p in sorted((root / "R/rotchain").glob("*_r001.png")):
+        a = np.asarray(Image.open(p))
+        b = np.asarray(Image.open(str(p).replace("_r001", "_r000")))
+        comp_same += a.shape == b.shape and np.array_equal(a, b)
+    for p in sorted((root / "R/rotsym").glob("*_r001_o.png")):
+        a = np.asarray(Image.open(p))
+        b = np.asarray(Image.open(str(p).replace("_r001", "_r000")))
+        comp_same += a.shape == b.shape and np.array_equal(a, b)
+    if comp_same:
+        raise AssertionError(f"composites: {comp_same} rotations equal "
+                             f"their originals")
+    print(f"config 4: mean abs difference to the background, median over "
+          f"the composites, inside the label box {np.median(inside):.1f}, "
+          f"outside {np.median(outside):.2f}; fused crops the unfused "
+          f"ones' sizes, labels equal, no trailing newline; config 5: "
+          f"{len(frames)} RGBA frames with transparent corners; composites: "
+          f"no rotation equals its original")
+
+    # one batch of every new step: the card against the CPU, byte for
+    # byte (the paste's batch holds the overlay resize)
+    ovs = sorted(ov_dir.iterdir())[:8]
+    bgs = sorted((o / "bg").iterdir())[:8]
+    pairs = list(zip(ovs, bgs))
+    frame_files = sorted((root / "V" / "frames" / clip.stem
+                          / "0-raw").iterdir())
+    crops = sorted(crops_dir.iterdir())
+    video_on_card = None
+    for name, transform, inputs, options, seed in (
+            ("paste", pipe_o.steps[1].process_function, pairs, {}, 31),
+            ("overlays_border_crop", pipe_o.steps[3].process_function,
+             pairs, margins, 31),
+            ("video_chain", video_chain, [(p,) for p in frame_files[:8]],
+             {}, 33),
+            ("rotations_symmetries", pipe_r.steps[0].process_function,
+             [(p,) for p in crops[:2]], comp_options, 34),
+            ("rotations_chain", pipe_r.steps[1].process_function,
+             [(p,) for p in crops[:2]], comp_options, 35)):
+        on_card = one_batch(transform, inputs, options, seed, dev)
+        check_batches_equal(
+            on_card, one_batch(transform, inputs, options, seed, "cpu"),
+            f"step {name} device_fn, card != CPU")
+        shapes = {k: tuple(v.shape) for k, v in on_card.items()}
+        print(f"one {name} batch, device_fn on the card == on the CPU, "
+              f"byte for byte: {shapes}")
+        if name == "video_chain":
+            video_on_card = on_card
+
+    # the kernel alone at the frames' canvas, one batch of 8
+    return rotation_kernel_alone(
+        video_on_card["image"].shape[1], dev, card, "the video chain",
+        chain_step.metrics.batches, CLIP_FRAMES)
 
 
 def main() -> None:
@@ -1055,13 +1383,20 @@ def main() -> None:
 
     # ---- F6: the card's tan/sin against the CPU's in shear_params ----------
     t0 = time.perf_counter()
-    f6 = shift_vector_deltas(geometry, dev)
+    f6, moved = shift_vector_deltas(geometry, dev)
     print(f"F6 shear_params at S=512 over 200000 angles from uniform(1, 359),"
           f" card against CPU: angles with a different quad {f6['quad']}, "
           f"sh1 {f6['sh1']}, sh2 {f6['sh2']}, any {f6['any']}; largest "
           f"shift difference {f6['max_step']} "
           f"({time.perf_counter() - t0:.1f} s)")
-
+    if len(moved) == 0:
+        raise AssertionError("F6: no angle moves a shift on this card")
+    t0 = time.perf_counter()
+    chain_modes_card_against_cpu(chains, moved, dev)
+    print(f"F6 chain: AugmentChain(640 -> 512) at B={len(moved)} over the "
+          f"{len(moved)} angles that move, cuda_full, cuda_fused and "
+          f"cuda_shear on the card == the same modes on the CPU, byte for "
+          f"byte ({time.perf_counter() - t0:.1f} s)")
 
     # ---- P1: the probe kernel's four moves ----------------------------------
     # byte for byte against torch.flip / torch.roll / clone, on the probe's
@@ -1300,6 +1635,8 @@ def main() -> None:
 
         stage_kernel = mask_chain_crop_pipelines(root, dev, card, workers,
                                                  launches)
+        video_kernel = overlay_video_pipelines(root, dev, card, workers,
+                                               launches)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -1312,7 +1649,8 @@ def main() -> None:
         "device_ms": {f"B={B}": dev_ms[name, B] for B in BATCHES},
         "bound_ms_by_batch": {f"B={B}": bound_ms[name, B] for B in BATCHES},
         "plain_ms_by_batch": {f"B={B}": plain_ms[name, B] for B in BATCHES},
-    } | ({"engine": engine_kernel, "fused_chain": stage_kernel}
+    } | ({"engine": engine_kernel, "fused_chain": stage_kernel,
+          "video_chain": video_kernel}
          if name == "shear_rotate_packed" else {})
         for name, (source, replaces) in KERNELS.items()] + [{
         "name": "rev_probe", "route": "cuda", "source": CSRC + "rev_probe.cu",

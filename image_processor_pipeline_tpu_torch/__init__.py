@@ -7,17 +7,23 @@ directories of images and YOLO labels), ``pairing``, ``io`` (decode, encode,
 labels, bucketing), ``transforms`` (``SquareCropAroundBBox``,
 ``RandomRotations``, ``GenerateSymmetries``, ``ColorMaskTransparency``,
 ``KeepLargestComponent``, ``EnhanceImage``, ``BorderCrop``, ``FitCrop``,
-``FusedChain`` with its stages in ``transforms.fused``, and the host
-steps), ``random`` (jax.random's threefry draws, bit-exact), ``ops.*``
-(plain torch twins of the JAX ops, ``ops.ccl`` the connected components),
+``FusedChain`` with its stages in ``transforms.fused``,
+``PasteOverlayOntoBackground``, ``OverlaysBorderCrop``,
+``RotationsSymmetries``, ``RotationsChain``, and the host steps with
+``frame_extraction`` and ``process_overlay_pair``), ``random``
+(jax.random's threefry draws, bit-exact), ``ops.*`` (plain torch twins of
+the JAX ops, ``ops.ccl`` the connected components, ``ops.compose`` the
+alpha paste, ``geometry.resize`` Pillow's fixed-point resample),
 ``ops.augment`` and ``ops.rotate`` (the wrappers around the
 hand-written CUDA kernels in ``csrc/``), ``kernels`` (nvcc build and ctypes
 binding), ``models.chains`` (the flagship chain as an ``nn.Module``),
 ``utils`` and ``interop`` (carries the JAX package's draws across).
 
 Steps compute on ``device="cuda"`` unless told ``device="cpu"``.  Not ported
-yet: the device JPEG codec, the native C++ twins, step fusion, overlays,
-video, the fan-out composites, meshes, the CLI and ``config``.
+yet: the device JPEG codec, the native C++ twins, step fusion, the fan-out
+composites with a symmetry tail (``RotSymChain``, ``ChainSymmetries``,
+``SymmetriesChain``, ``RotationsChainSymmetries``,
+``SymmetriesChainSymmetries``), meshes, the CLI and ``config``.
 """
 
 from image_processor_pipeline_tpu_torch.pipeline import ProcessingPipeline, ProcessingStep

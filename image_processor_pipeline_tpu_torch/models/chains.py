@@ -132,31 +132,35 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
     dev = images.device
     y0, x0, angles = _crop_params(images.shape[1:3], xywhn, seeds, crop)
     flips, prms = _flip_and_params(seeds)
-    y0, x0, angles, flips, prms = (torch.as_tensor(a, device=dev)
-                                   for a in (y0, x0, angles, flips, prms))
+    # the shift vectors from the host's angles, so that every device and
+    # every mode gets the same ones (the card's tanf/sinf move a shift on
+    # a few angles in 10^4)
+    shifts = geometry.shear_params(torch.from_numpy(angles), crop)
+    y0, x0, flips, prms, *shifts = (torch.as_tensor(a, device=dev)
+                                    for a in (y0, x0, flips, prms, *shifts))
     if rotation == "cuda_full":
         # the kernel reads the uint8 canvas itself: no packing pass
-        return augment_fused_full(images.contiguous(), y0, x0, angles, prms,
+        return augment_fused_full(images.contiguous(), y0, x0, None, prms,
                                   flips, _FILTER_LOWERS, _FILTER_UPPERS,
-                                  _FILTER_ZONES, crop=crop)
+                                  _FILTER_ZONES, crop=crop, shifts=shifts)
     if rotation == "full_reference":
-        return augment_full_reference(pack_rgba(images), y0, x0, angles,
+        return augment_full_reference(pack_rgba(images), y0, x0, None,
                                       prms, flips, _FILTER_LOWERS,
                                       _FILTER_UPPERS, _FILTER_ZONES,
-                                      crop=crop)
+                                      crop=crop, shifts=shifts)
     if rotation == "cuda_shear":
         # the kernel reads its crop from the canvas: no torch crop index
-        rotated = shear_rotate_crop(images.contiguous(), y0, x0,
-                                    *geometry.shear_params(angles, crop), crop)
+        rotated = shear_rotate_crop(images.contiguous(), y0, x0, *shifts,
+                                    crop)
         return _finish_one(rotated, flips, prms, crop)
     cropped = _crop_one(images[..., :3], y0, x0, crop).contiguous()
     if rotation in ("cuda_fused", "fused_reference"):
         fn = augment_fused if rotation == "cuda_fused" \
             else augment_finish_reference
-        return fn(cropped, angles, prms, _FILTER_LOWERS, _FILTER_UPPERS,
-                  _FILTER_ZONES, flips=flips)
-    return _finish_one(geometry.rotate_square_shear(cropped, angles), flips,
-                       prms, crop)
+        return fn(cropped, None, prms, _FILTER_LOWERS, _FILTER_UPPERS,
+                  _FILTER_ZONES, flips=flips, shifts=shifts)
+    return _finish_one(geometry.rotate_square_shear_by(cropped, *shifts),
+                       flips, prms, crop)
 
 
 class AugmentChain(nn.Module):

@@ -214,6 +214,18 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is on {t.device}, the images on {device}")
 
 
+def _checked_shifts(angles, shifts, B: int, S: int, dev):
+    """The batch's (quad, sh1, sh2): ``shifts`` when given, else computed
+    from ``angles`` [B] float32 on ``dev``; checked either way."""
+    if shifts is None:
+        _check("angles", angles, torch.float32, (B,), dev)
+        shifts = _shifts(angles, S)
+    for name, t, shape in zip(("quad", "sh1", "sh2"), shifts,
+                              ((B,), (B, S), (B, S))):
+        _check(name, t, torch.int32, shape, dev)
+    return shifts
+
+
 def chain_args(canvas, y0, x0, shifts, enh_params, flips, lowers, uppers,
                zones, S: int):
     """launch_chain's arguments after its name, for a uint8 canvas
@@ -265,7 +277,7 @@ def max_active_clusters(S: int, C: int = 3, cluster: int = CLUSTER) -> int:
 
 
 def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
-                       uppers, zones, crop: int = 512):
+                       uppers, zones, crop: int = 512, shifts=None):
     """The whole chain for a batch: crop → flip → rotate → mask → enhance.
 
     canvas: packed int32 [B, SIN, SIN] RGBA (see pack_rgba) or uint8
@@ -273,9 +285,11 @@ def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
     y0/x0: [B] int32 crop offsets; angles: [B] float32 degrees;
     enh_params: [B, 8] float32 (brightness, contrast, color, gain r/g/b);
     flips: [B] int32 user flip codes (0=o, 1=h, 2=v, 3=hv);
-    lowers/uppers/zones: the static filter stack ([F, 3], [F, 3], [F, 4]).
-    Returns [B, S, S, 4] uint8.  CPU tensors run augment_full_reference;
-    CUDA tensors launch the kernel (no fallback); other devices raise.
+    lowers/uppers/zones: the static filter stack ([F, 3], [F, 3], [F, 4]);
+    shifts: (quad [B], sh1 [B, S], sh2 [B, S]) int32 to use in place of
+    ``angles`` (which may then be None).  Returns [B, S, S, 4] uint8.  CPU
+    tensors run augment_full_reference; CUDA tensors launch the kernel (no
+    fallback); other devices raise.
     """
     src = canvas_u8(canvas)
     B, SIN, S, dev = src.shape[0], src.shape[1], crop, src.device
@@ -283,11 +297,10 @@ def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
         raise ValueError(f"crop {S} must lie in [1, {SIN}]")
     for name, t, dtype, shape in (
             ("y0", y0, torch.int32, (B,)), ("x0", x0, torch.int32, (B,)),
-            ("angles", angles, torch.float32, (B,)),
             ("enh_params", enh_params, torch.float32, (B, 8)),
             ("flips", flips, torch.int32, (B,))):
         _check(name, t, dtype, shape, dev)
-    shifts = _shifts(angles, S)
+    shifts = _checked_shifts(angles, shifts, B, S, dev)
     if dev.type == "cpu":
         return augment_full_reference(src, y0, x0, angles, enh_params,
                                       flips, lowers, uppers, zones, crop=S,
@@ -305,8 +318,8 @@ def augment_fused(images, angles, enh_params, lowers, uppers, zones,
     images: [B, S, S, 3] uint8 RGB crops, contiguous; angles: [B] float32
     degrees; enh_params: [B, 8] float32 (brightness, contrast, color, gain
     r/g/b); flips: [B] int32 user flip codes (0=o, 1=h, 2=v, 3=hv), none
-    by default; shifts: (quad [B], sh1 [B, S], sh2 [B, S]) int32 to use
-    instead of computing them from ``angles``; lowers/uppers/zones: the
+    by default; shifts: (quad [B], sh1 [B, S], sh2 [B, S]) int32 to use in
+    place of ``angles`` (which may then be None); lowers/uppers/zones: the
     static filter stack.  Returns [B, S, S, 4] uint8 RGBA.  CPU tensors run
     augment_finish_reference; CUDA tensors launch the kernel, the whole
     chain's with the crops as canvases (no fallback); other devices raise.
@@ -321,15 +334,10 @@ def augment_fused(images, angles, enh_params, lowers, uppers, zones,
     if flips is None:
         flips = torch.zeros(B, dtype=torch.int32, device=dev)
     for name, t, dtype, shape in (
-            ("angles", angles, torch.float32, (B,)),
             ("enh_params", enh_params, torch.float32, (B, 8)),
             ("flips", flips, torch.int32, (B,))):
         _check(name, t, dtype, shape, dev)
-    if shifts is None:
-        shifts = _shifts(angles, S)
-    for name, t, shape in zip(("quad", "sh1", "sh2"), shifts,
-                              ((B,), (B, S), (B, S))):
-        _check(name, t, torch.int32, shape, dev)
+    shifts = _checked_shifts(angles, shifts, B, S, dev)
     if dev.type == "cpu":
         return augment_finish_reference(images, angles, enh_params, lowers,
                                         uppers, zones, flips=flips,

@@ -62,6 +62,16 @@ def shift_boxes(boxes, dx, dy):
     return boxes - offset[..., None, :]
 
 
+def valid_boxes(boxes, min_size=1.0):
+    """Validity mask for xyxy boxes [..., 4]: an extent of at least
+    ``min_size`` on both axes, (x2 - x1 >= min_size) & (y2 - y1 >=
+    min_size), the elementwise test the reference meant
+    (crop_square.py:210)."""
+    boxes = torch.as_tensor(boxes, dtype=torch.float32)
+    return ((boxes[..., 2] - boxes[..., 0]) >= min_size) & (
+        (boxes[..., 3] - boxes[..., 1]) >= min_size)
+
+
 def union_box(boxes, mask=None):
     """Union (enclosing) xyxy box over the boxes axis (-2) of [..., N, 4].
 

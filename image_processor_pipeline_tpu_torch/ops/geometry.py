@@ -19,6 +19,7 @@ form's on every test case).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -567,3 +568,143 @@ def rotate_square_shear(img, angles):
     centres by ``angles`` [B] degrees on a fixed canvas (Paeth three-shear
     rotation; pixels leaving the frame are cut, uncovered ones are 0)."""
     return rotate_square_shear_by(img, *shear_params(angles, img.shape[1]))
+
+
+# ---------------------------------------------------------------------------
+# separable resize: Pillow's fixed-point resample (Resample.c)
+# ---------------------------------------------------------------------------
+
+#: Pillow's 8-bit fixed point: taps are int32 with this many fraction bits
+PRECISION_BITS = 32 - 8 - 2
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    return _sinc(x) * _sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+def _bilinear(x: float) -> float:
+    x = -x if x < 0.0 else x
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+#: filter and support of each method; C's sin through ``math.sin``
+RESIZE_FILTERS = {"bilinear": (_bilinear, 1.0), "lanczos": (_lanczos, 3.0)}
+
+
+@functools.lru_cache(maxsize=4096)
+def resample_coeffs(in_size: int, out_size: int, method: str):
+    """One pass of Pillow's resample from ``in_size`` to ``out_size``
+    pixels: (xmin [out] int64, taps [out, ksize] int64), output pixel xx
+    summing taps[xx, k] * in[xmin[xx] + k].  Pillow's
+    ``precompute_coeffs`` in float64 and ``normalize_coeffs_8bpc``
+    (rounded half away from zero to PRECISION_BITS).  Read-only arrays,
+    cached by their arguments."""
+    if method not in RESIZE_FILTERS:
+        raise ValueError(f"unknown resize filter {method!r}; choose from "
+                         f"{tuple(RESIZE_FILTERS)}")
+    filt, support = RESIZE_FILTERS[method]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = support * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    xmins = np.zeros(out_size, np.int64)
+    taps = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [filt((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        for x, v in enumerate(w):
+            v = v / ww if ww != 0.0 else v
+            v = v * (1 << PRECISION_BITS)
+            taps[xx, x] = int(v - 0.5 if v < 0 else v + 0.5)
+        xmins[xx] = xmin
+    xmins.flags.writeable = False
+    taps.flags.writeable = False
+    return xmins, taps
+
+
+def _pass_tables(n_in, n_out, In: int, Out: int, method: str):
+    """Gather indices and taps [B, Out, K] int64 of one pass for a batch:
+    item b resamples its n_in[b] valid pixels to n_out[b] (at most
+    ``Out``); an unchanged extent copies (Pillow skips that pass), and
+    outputs past n_out get no taps."""
+    tables = []
+    for i, o in zip(np.asarray(n_in).tolist(), np.asarray(n_out).tolist()):
+        if i == o or i <= 0 or o <= 0:
+            n = max(min(i, o), 0)
+            xmin, t = (np.arange(n, dtype=np.int64),
+                       np.full((n, 1), 1 << PRECISION_BITS, np.int64))
+        else:
+            xmin, t = resample_coeffs(i, o, method)
+        tables.append((xmin[:Out], t[:Out]))
+    K = max(t.shape[1] for _, t in tables)
+    idx = np.zeros((len(tables), Out, K), np.int64)
+    taps = np.zeros((len(tables), Out, K), np.int64)
+    for b, (xmin, t) in enumerate(tables):
+        n, k = t.shape
+        idx[b, :n, :k] = np.minimum(xmin[:, None] + np.arange(k), In - 1)
+        taps[b, :n, :k] = t
+    return idx, taps
+
+
+def _resample_pass(img, idx, taps, dim: int):
+    """One fixed-point pass along ``dim`` (1 rows, 2 columns) of uint8
+    [B, H, W, C]: int64 sums of the taps from ``1 << (PRECISION_BITS-1)``,
+    then Pillow's clip8 (shift out the fraction, clamp to 0..255)."""
+    shape = [img.shape[0], 1, 1, 1]
+    shape[dim] = idx.shape[1]
+    acc = torch.full((), 1 << (PRECISION_BITS - 1), dtype=torch.int64,
+                     device=img.device)
+    for k in range(idx.shape[2]):
+        src = torch.take_along_dim(img, idx[:, :, k].reshape(shape), dim=dim)
+        acc = acc + src.to(torch.int64) * taps[:, :, k].reshape(shape)
+    return (acc >> PRECISION_BITS).clamp(0, 255).to(torch.uint8)
+
+
+def resize(img, h, w, out_h, out_w, method: str = "lanczos",
+           out_canvas=None):
+    """Resize each item's valid region [0:h, 0:w] to (out_h, out_w), as
+    ``PIL.Image.resize(..., LANCZOS | BILINEAR)`` on one band at a time.
+
+    img: uint8 [B, H, W, C]; h, w, out_h, out_w: one host integer an item
+    (numbers or [B] arrays: the coefficients are made on the host).
+    Returns uint8 [B, Ho, Wo, C] on ``out_canvas`` = (Ho, Wo) (default the
+    input canvas), zero outside [0:out_h, 0:out_w].
+
+    Pillow's fixed-point form, not the JAX function's float32 matmuls
+    (which are Pillow ±2): float64 coefficients rounded to int32 taps,
+    summed in int64, the horizontal pass first into a rounded uint8
+    intermediate, then the vertical one; a pass whose extent does not
+    change is skipped.  Integer arithmetic, so the card and the CPU give
+    the same bytes.  Replaces PIL Image.resize at reference
+    overlays.py:129.
+    """
+    B, H, W, C = img.shape
+    Ho, Wo = out_canvas if out_canvas is not None else (H, W)
+    n = lambda v: np.broadcast_to(np.asarray(v, np.int64), (B,))
+    h, w, out_h, out_w = (n(v) for v in (h, w, out_h, out_w))
+    # resample only the columns and rows some item fills; the rest of the
+    # canvas stays 0
+    wmax, hmax = (min(int(v.max(initial=0)), lim)
+                  for v, lim in ((out_w, Wo), (out_h, Ho)))
+    dev = img.device
+    idx, taps = (torch.from_numpy(a).to(dev)
+                 for a in _pass_tables(w, out_w, W, wmax, method))
+    tmp = _resample_pass(img, idx, taps, dim=2)
+    idx, taps = (torch.from_numpy(a).to(dev)
+                 for a in _pass_tables(h, out_h, H, hmax, method))
+    out = torch.zeros((B, Ho, Wo, C), dtype=img.dtype, device=dev)
+    out[:, :hmax, :wmax] = _resample_pass(tmp, idx, taps, dim=1)
+    return out

@@ -38,6 +38,14 @@ PORT_MODULES = (
     "image_processor_pipeline_tpu_torch.transforms.cleanup",
     "image_processor_pipeline_tpu_torch.transforms.enhance",
     "image_processor_pipeline_tpu_torch.transforms.recadrages",
+    "image_processor_pipeline_tpu_torch.ops.compose",
+    "image_processor_pipeline_tpu_torch.transforms.overlays",
+    "image_processor_pipeline_tpu_torch.transforms.ovlborder",
+    "image_processor_pipeline_tpu_torch.transforms.overlays_legacy",
+    "image_processor_pipeline_tpu_torch.transforms.video",
+    "image_processor_pipeline_tpu_torch.transforms.rotsym",
+    "image_processor_pipeline_tpu_torch.transforms.rotchain",
+    "image_processor_pipeline_tpu_torch.transforms.crop_dummy",
 )
 
 
@@ -190,3 +198,29 @@ def test_cuda_shear_reads_the_canvas_without_a_crop_index(monkeypatch,
     assert crops == [] and all(n == 0 for n in kernels.launch_counts.values())
     want = tchains.augment_chain(images, xywhn, seeds, 64, "shear")
     assert crops == [1] and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", tchains.MODES)
+def test_chain_takes_its_shift_vectors_from_the_host_angles(monkeypatch,
+                                                            mode):
+    """F6: every mode computes shear_params once, from the CPU tensor of
+    the host's angles, and hands the vectors to its kernel wrapper or
+    plain twin (which would otherwise compute them again on the images'
+    device)."""
+    images, xywhn, seeds = chain_inputs(4, 96, seed=15)
+    calls = []
+    real = tgeo.shear_params
+    monkeypatch.setattr(tgeo, "shear_params",
+                        lambda a, H: calls.append((a, H)) or real(a, H))
+    got = tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                                mode)
+    _, _, angles = tchains._crop_params(images.shape[1:3], xywhn, seeds, 64)
+    assert len(calls) == 1
+    (a, H), = calls
+    assert H == 64 and a.device.type == "cpu" and a.dtype == torch.float32
+    np.testing.assert_array_equal(a.numpy(), angles)
+    monkeypatch.setattr(tgeo, "shear_params", real)
+    twin = {"cuda_full": "full_reference", "cuda_fused": "fused_reference",
+            "cuda_shear": "shear"}.get(mode, mode)
+    assert torch.equal(got, tchains.augment_chain(
+        torch.as_tensor(images), xywhn, seeds, 64, twin))

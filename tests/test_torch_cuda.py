@@ -646,3 +646,251 @@ def test_bilinear_rotations_on_card(cuda_device, channels):
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(got[2].cpu(), want[2])
     assert (got[0].cpu() != want[0]).float().mean() <= 1e-3
+
+
+# -- the chain modes on the card against the CPU (F6) ---------------------------
+
+def moving_angles(dev, n=8):
+    """Up to ``n`` angles whose shear_params computed on the card differ
+    from the CPU's (the card's tanf/sinf), then random ones to fill n."""
+    angles = np.random.default_rng(6).uniform(1, 359, 200_000).astype(
+        np.float32)
+    a = torch.as_tensor(angles)
+    cpu = geometry.shear_params(a, 512)
+    card = [t.cpu() for t in geometry.shear_params(a.to(dev), 512)]
+    moved = np.zeros(len(angles), bool)
+    for c, g in zip(cpu, card):
+        moved |= (c != g).reshape(len(angles), -1).any(1).numpy()
+    picked = angles[moved][:n]
+    return np.concatenate([picked, angles[~moved][:n - len(picked)]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", chains.MODES)
+def test_chain_modes_on_card_match_the_cpu(cuda_device, monkeypatch, mode):
+    """With the shift vectors from the host, every mode's batch on the
+    card equals the same batch on the CPU, on angles where the card's own
+    shear_params would move a shift."""
+    angles = moving_angles(cuda_device)
+    real = chains._crop_params
+
+    def crop_params(*args, **kw):
+        y0, x0, _ = real(*args, **kw)
+        return y0, x0, angles[:len(y0)]
+
+    monkeypatch.setattr(chains, "_crop_params", crop_params)
+    chain = chains.AugmentChain(640, rotation=mode, device=cuda_device)
+    images, xywhn, seeds = chain.example_inputs(batch=len(angles))
+    got = chain(images, xywhn, seeds)
+    want = chains.augment_chain(images.cpu(), xywhn, seeds, rotation=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+# -- overlays, video and the composites on the card ------------------------------
+
+@pytest.mark.cuda
+def test_resize_and_paste_on_card_match_the_cpu(cuda_device):
+    from image_processor_pipeline_tpu_torch.ops import compose
+
+    rng = np.random.default_rng(12)
+    img = torch.as_tensor(rng.integers(0, 256, (4, 96, 128, 4), np.uint8))
+    sizes = ([90, 40, 96, 7], [128, 33, 100, 128], [45, 96, 200, 1],
+             [61, 128, 33, 300])
+    for method in ("lanczos", "bilinear"):
+        want = geometry.resize(img, *sizes, method, out_canvas=(256, 320))
+        got = geometry.resize(img.to(cuda_device), *sizes, method,
+                              out_canvas=(256, 320))
+        assert torch.equal(got.cpu(), want)
+    bg = torch.as_tensor(rng.integers(0, 256, (4, 96, 128, 3), np.uint8))
+    args = [torch.as_tensor(v, dtype=torch.int32) for v in (
+        [96, 80, 50, 96], [128, 100, 128, 60], [20, 96, 1, 30],
+        [30, 128, 9, 60], [0, 0, 40, 5], [3, 0, 100, 0])]
+    want = compose.alpha_paste(bg, *args[:2], img, *args[2:])
+    got = compose.alpha_paste(bg.to(cuda_device),
+                              *(a.to(cuda_device) for a in args[:2]),
+                              img.to(cuda_device),
+                              *(a.to(cuda_device) for a in args[2:]))
+    assert torch.equal(got.cpu(), want)
+
+
+def _overlay_inputs(root, n_ov=8, n_bg=4):
+    from PIL import Image
+    from torch_port_data import make_image
+
+    rng = np.random.default_rng(13)
+    (root / "ov").mkdir(parents=True)
+    (root / "bg").mkdir()
+    for i in range(n_ov):
+        ov = make_image(rng, 30 + 3 * i, 24 + 5 * i, 4)
+        ov[..., 3] = np.where(ov[..., 3] > 0, 255, 0)
+        ov[1:4, 1:4, 3] = 100
+        Image.fromarray(ov).save(root / "ov" / f"ov{i}.png")
+    for i in range(n_bg):
+        Image.fromarray(make_image(rng, 70 + 10 * i, 110 - 10 * i)).save(
+            root / "bg" / f"bg{i}.jpg", quality=92)
+    return root / "ov", root / "bg"
+
+
+@pytest.mark.cuda
+def test_overlay_device_fn_on_card_matches_the_cpu(cuda_device, tmp_path):
+    from image_processor_pipeline_tpu_torch.transforms import (
+        PasteOverlayOntoBackground)
+
+    ov, bg = _overlay_inputs(tmp_path)
+    t = PasteOverlayOntoBackground()
+    ovs, bgs = sorted(ov.iterdir()), sorted(bg.iterdir())
+    chunk = [t.load_item((o, bgs[i % len(bgs)]), {})
+             for i, o in enumerate(ovs)]
+    by_key = {}
+    for i, item in enumerate(chunk):
+        item["_seed"] = 40 + i
+        by_key.setdefault(t.bucket_key(item, {}), []).append(item)
+    for key, items in by_key.items():
+        outs = [t.launch_batch(key, items, {}, dev)
+                for dev in (cuda_device, "cpu")]
+        assert sorted(outs[0]) == sorted(outs[1])
+        for k in outs[1]:
+            assert torch.equal(outs[0][k].cpu(), outs[1][k]), k
+
+
+def _run_config4(root, ov, bg, device):
+    from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
+                                                    ProcessingStep)
+    from image_processor_pipeline_tpu_torch.transforms import (
+        BorderCrop, OverlaysBorderCrop, PasteOverlayOntoBackground)
+
+    kw = {"device": device, "workers": 2}
+    margins = {"crop_margins": (0.05, 0.05, 0.05, 0.05)}
+    pipe = ProcessingPipeline(root_dir=root)
+    pipe.add_step(ProcessingStep(
+        "paste", PasteOverlayOntoBackground(), input_dirs=[ov, bg],
+        output_dirs=["c4/i", "c4/l"], pairing_method="modulo", seed=6, **kw))
+    pipe.add_step(ProcessingStep(
+        "recrop", BorderCrop(), input_dirs=["c4/i"], output_dirs=["c4crop"],
+        seed=7, fixed_input=True, options=margins, **kw))
+    pipe.add_step(ProcessingStep(
+        "ovlborder", OverlaysBorderCrop(), input_dirs=[ov, bg],
+        output_dirs=["ob/i", "ob/l"], pairing_method="modulo", seed=6,
+        fixed_input=True, options=margins, **kw))
+    return pipe.run(progress=False)
+
+
+def _assert_same_dirs(a, b, n):
+    from PIL import Image
+
+    names = sorted(p.name for p in a.iterdir())
+    assert names == sorted(p.name for p in b.iterdir()) and len(names) == n
+    for name in names:
+        if name.endswith(".txt"):
+            assert (a / name).read_text() == (b / name).read_text(), name
+            continue
+        got, want = (np.asarray(Image.open(d / name)) for d in (a, b))
+        assert got.shape == want.shape and np.array_equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_config4_on_card_matches_the_cpu(cuda_device, tmp_path):
+    ov, bg = _overlay_inputs(tmp_path / "data")
+    counts = _run_config4(tmp_path / "cuda", ov, bg, cuda_device)
+    assert [dict(c) for c in counts] == [{"Success": 8}] * 3
+    _run_config4(tmp_path / "cpu", ov, bg, "cpu")
+    for d in ("c4/i", "c4/l", "c4crop", "ob/i", "ob/l"):
+        _assert_same_dirs(tmp_path / "cuda" / d, tmp_path / "cpu" / d, 8)
+
+
+def _write_clip(path, n=7):
+    cv2 = pytest.importorskip("cv2")
+    w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                        (64, 48))
+    if not w.isOpened():
+        path = path.with_suffix(".avi")
+        w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                            (64, 48))
+    assert w.isOpened(), "cv2 writes neither mp4v nor MJPG"
+    rng = np.random.default_rng(7)
+    for i in range(n):
+        f = rng.integers(0, 256, (48, 64, 3), np.uint8)
+        f[..., 2] = 30 * i
+        w.write(f)
+    w.release()
+    return path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nearest", "shear"])
+def test_config5_on_card_matches_the_cpu(cuda_device, tmp_path, method):
+    from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
+                                                    ProcessingStep)
+    from image_processor_pipeline_tpu_torch.transforms import (
+        frame_extraction, fused)
+
+    (tmp_path / "clips").mkdir()
+    clip = _write_clip(tmp_path / "clips" / "clip.mp4")
+    frames = tmp_path / "frames"
+    ProcessingStep("frames", frame_extraction, input_dirs=[clip.parent],
+                   output_dirs=[frames],
+                   options={"file_basename": "clip"}).run(progress=False)
+    for device in (cuda_device, "cpu"):
+        pipe = ProcessingPipeline(root_dir=tmp_path / str(device)[:4])
+        pipe.add_step(ProcessingStep(
+            "augment", fused.FusedChain([
+                fused.Rotate(method=method), fused.Flip(), fused.Enhance()]),
+            input_dirs=[frames / "clip" / "0-raw"], output_dirs=["aug"],
+            seed=8, device=device, workers=2))
+        kernels.reset_launch_counts()
+        assert pipe.run(progress=False) == [{"Success": 7}]
+        if device != "cpu" and method == "shear":
+            assert kernels.launch_counts["shear_rotate_packed"] \
+                == pipe.steps[0].metrics.batches
+    _assert_same_dirs(tmp_path / "cuda" / "aug", tmp_path / "cpu" / "aug", 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nearest", "shear"])
+def test_composites_on_card_match_the_cpu(cuda_device, tmp_path, method):
+    from image_processor_pipeline_tpu_torch import ProcessingStep
+    from image_processor_pipeline_tpu_torch.transforms import (
+        RotationsChain, RotationsSymmetries, fused)
+
+    imgs, _ = _engine_dataset(tmp_path)
+    tail = [fused.ColorMask(MASK_RANGES, input_alpha="replace"),
+            fused.Cleanup(20), fused.FitCrop(), fused.Enhance(0.5, 0.5)]
+    for name, transform in (("rotsym", RotationsSymmetries()),
+                            ("rotchain", RotationsChain(tail))):
+        for device in (cuda_device, "cpu"):
+            step = ProcessingStep(
+                name, transform, input_dirs=[imgs],
+                output_dirs=[tmp_path / str(device)[:4] / name], seed=9,
+                device=device, workers=2,
+                options={"num_rotations": 3, "method": method})
+            kernels.reset_launch_counts()
+            assert step.run(progress=False) == {"Success": 12}
+            if device != "cpu" and method == "shear":
+                assert kernels.launch_counts["shear_rotate_packed"] \
+                    == step.metrics.batches >= 2
+        n = 12 * 4 * (4 if name == "rotsym" else 1)
+        _assert_same_dirs(tmp_path / "cuda" / name, tmp_path / "cpu" / name,
+                          n)
+
+
+@pytest.mark.cuda
+def test_rotation_kernel_at_the_video_frames_shape(cuda_device,
+                                                   direct_tiles):
+    """K2 on config 5's batch: eight 640 x 480 frames on the diagonal
+    canvas of 896, RGBA, tiled with no direct tile."""
+    from image_processor_pipeline_tpu_torch.io.batching import bucket_dim
+
+    S = bucket_dim(800)
+    assert S == 896
+    rng = np.random.default_rng(896)
+    imgs = torch.as_tensor(rng.integers(0, 256, (8, S, S, 4), np.uint8),
+                           device=cuda_device)
+    angles = torch.as_tensor(rng.uniform(1, 359, 8).astype(np.float32))
+    shifts = [t.to(cuda_device) for t in geometry.shear_params(angles, S)]
+    kernels.reset_launch_counts()
+    got = rotate.shear_rotate(imgs, *shifts)
+    assert kernels.launch_counts["shear_rotate_packed"] == 1
+    want = geometry.rotate_square_shear_by(imgs, *shifts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(direct_tiles) == 0

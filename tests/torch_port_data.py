@@ -1,12 +1,12 @@
 """Datasets for the port's engine tests: small PNG images with YOLO labels,
 made from a numpy seed in a temporary directory; and the helpers that hold
-one engine's output directory against the other's."""
+one engine's output directory against the other's.  jax is imported only
+inside the helpers that run the JAX package, so the card tests can use the
+datasets where jax is not installed."""
 
 import json
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 from PIL import Image
 
@@ -102,6 +102,8 @@ def assert_same_files(jdir, tdir, n_files, named=(), levels=1):
 def jax_box_weights(sigma, passes=3, max_radius=12):
     """The constants of the JAX gaussian_blur (photometric.py:183-193), its
     lines as they stand, to be run eagerly or under jit."""
+    import jax.numpy as jnp
+
     sig = jnp.maximum(jnp.asarray(sigma, jnp.float32), 1e-6)
     sigma2 = sig * sig / passes
     L = jnp.sqrt(12.0 * sigma2 + 1.0)
@@ -121,6 +123,8 @@ def blur_differs_under_jit(sigmas):
     from the eager ones (which are Pillow's and the port's).  A blurred
     item of a jitted JAX run with such a sigma may differ from the port's
     by one grey level on a few percent of its values."""
+    import jax
+
     sigmas = np.asarray(sigmas, np.float32)
     with jax.disable_jit():
         eager = [np.asarray(v) for v in jax_box_weights(sigmas)]
