@@ -54,6 +54,7 @@ passed.  Without a CUDA card it exits non-zero.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -101,6 +102,13 @@ ENGINE_MASK_RANGES = [(0, 0, 0, 180, 255, 110), (35, 60, 60, 85, 255, 255)]
 OVERLAYS = ENGINE_IMAGES // 4
 CLIP_FRAMES, CLIP_W, CLIP_H = 24, 640, 480
 COMPOSITE_ITEMS = 16
+# the fan-out fusion phase: this many of pipeline A's crops and of
+# pipeline C's colour-masked RGBA PNGs of them; the batch held against the
+# CPU is two of the inputs, or for a rotation head one centre cut of this
+# side (one 480 px crop through RotSymChain took 134 s on 8 CPU cores:
+# 20 canvases of 768, some 500 connected-component sweeps)
+FANOUT_ITEMS = 8
+FANOUT_CPU_CUT = 160
 
 
 def kernel_inputs(SIN, S, B, seed, dev):
@@ -645,17 +653,18 @@ def mask_chain_crop_pipelines(root, dev, card, workers, launches):
         counts["shear_rotate_packed"], k)
 
 
-def rotation_kernel_alone(S, dev, card, where, launches_a_step, items):
-    """K2 alone on a batch of 8 random RGBA canvases of S, held against its
+def rotation_kernel_alone(S, dev, card, where, launches_a_step, items,
+                          B=8):
+    """K2 alone on a batch of B random RGBA canvases of S, held against its
     plain twin: its device ms a launch, its byte bound and the plain
     twin's ms a call."""
     from image_processor_pipeline_tpu_torch.ops import geometry, rotate
 
-    rng = np.random.default_rng(S)
-    imgs = torch.as_tensor(rng.integers(0, 256, (8, S, S, 4), np.uint8),
+    rng = np.random.default_rng(S + B)
+    imgs = torch.as_tensor(rng.integers(0, 256, (B, S, S, 4), np.uint8),
                            device=dev)
     shifts = geometry.shear_params(torch.as_tensor(
-        rng.uniform(1, 359, 8).astype(np.float32), device=dev), S)
+        rng.uniform(1, 359, B).astype(np.float32), device=dev), S)
     err, direct = count_direct_tiles(
         rotate.kernels, dev, lambda: check_equal(
             rotate.launch_shear(imgs, *shifts),
@@ -665,17 +674,18 @@ def rotation_kernel_alone(S, dev, card, where, launches_a_step, items):
         raise AssertionError(f"shear_rotate_packed at {where}'s shape: "
                              f"{direct} direct tiles")
     alone = {
-        "shape": [8, S, S, 4],
+        "shape": [B, S, S, 4],
         "ms": device_ms(lambda: rotate.launch_shear(imgs, *shifts)),
         "plain_ms": statistics.median(time_calls(
             lambda i: geometry.rotate_square_shear_by(imgs, *shifts),
             calls=5, windows=3)),
-        "bound_ms": rotate_bytes(S, 8, 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": rotate_bytes(S, B, 4) / HBM_BYTES_PER_S * 1e3,
         "launches_a_step": launches_a_step, "max_abs_err": err}
     print(f"shear_rotate_packed at {where}'s shape {alone['shape']}: "
           f"== plain, 0 direct tiles; kernel {alone['ms']:.4f} ms of device "
           f"time a launch, bound {alone['bound_ms']:.4f} ms "
-          f"({rotate_bytes(S, 8, 4)} bytes at 3.35 TB/s), plain "
+          f"({rotate_bytes(S, B, 4)} bytes at 3.35 TB/s, share "
+          f"{alone['bound_ms'] / alone['ms']:.3f}), plain "
           f"{alone['plain_ms']:.4f} ms a call, {launches_a_step} launches "
           f"a step of {items} items; card {card}")
     return alone
@@ -947,6 +957,219 @@ def overlay_video_pipelines(root, dev, card, workers, launches):
     return rotation_kernel_alone(
         video_on_card["image"].shape[1], dev, card, "the video chain",
         chain_step.metrics.batches, CLIP_FRAMES)
+
+
+def same_decoded_files(a, b, what):
+    """Raise unless directories ``a`` and ``b`` hold the same file names
+    with equal decoded pixels; returns the number of files."""
+    from PIL import Image
+
+    names = sorted(p.name for p in Path(a).iterdir())
+    if names != sorted(p.name for p in Path(b).iterdir()) or not names:
+        raise AssertionError(f"{what}: file names differ or none: "
+                             f"{len(names)} files")
+    for name in names:
+        got, want = (np.asarray(Image.open(Path(d) / name)) for d in (a, b))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{what}: {name} differs")
+    return len(names)
+
+
+def fanout_fusion_pipelines(root, dev, card, workers, launches, crops_dir,
+                            masked_dir, n=FANOUT_ITEMS):
+    """The five symmetry fan-out shapes, each run on ``dev`` with
+    auto_fuse=False and with auto_fuse=True in roots of their own, over
+    ``n`` of ``crops_dir``'s crops (the rotation-headed ones) or ``n`` of
+    ``masked_dir``'s colour-masked RGBA PNGs: every item a Success, the
+    fused run's final files those of the unfused run, no elided directory
+    written, the rotation kernel launched once a batch of each
+    rotation-headed fused step with no direct tile, one batch of each new
+    class on ``dev`` equal to the same batch on the CPU.  Adds the kernel's
+    launches to ``launches``; returns its measurements at the two
+    rotation-headed steps' shapes."""
+    from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
+                                                    ProcessingStep, kernels)
+    from image_processor_pipeline_tpu_torch.io.batching import bucket_dim
+    from image_processor_pipeline_tpu_torch.ops import ccl
+    from image_processor_pipeline_tpu_torch.transforms import (
+        ColorMaskTransparency, FitCrop, GenerateSymmetries,
+        KeepLargestComponent, RandomRotations)
+
+    base = root / "F"
+    inputs = {}
+    for name, src in (("crops", crops_dir), ("masked", masked_dir)):
+        inputs[name] = base / "data" / name
+        inputs[name].mkdir(parents=True)
+        for p in sorted(Path(src).iterdir())[:n]:
+            shutil.copy(p, inputs[name] / p.name)
+    kinds = {
+        "rot": (RandomRotations, {"method": "shear",
+                                  "num_rotations": ENGINE_ROTATIONS}),
+        "sym": (GenerateSymmetries, {}),
+        "mask": (ColorMaskTransparency,
+                 {"color_ranges_to_exclude_hsv": ENGINE_MASK_RANGES}),
+        "clean": (KeepLargestComponent, {"min_component_size": 500}),
+        "fit": (FitCrop, {})}
+    # pipeline -> (its input, its steps as (kind, output dir), the classes
+    # the fuser gives: the JAX fuser's for the same list)
+    shapes = {
+        "rotsymchain": ("crops", [("rot", "rot"), ("sym", "sym"),
+                                  ("mask", "mask"), ("clean", "clean"),
+                                  ("fit", "out")], ["RotSymChain"]),
+        "rotchainsym": ("crops", [("rot", "rot"), ("mask", "mask"),
+                                  ("clean", "clean"), ("sym", "out")],
+                        ["RotationsChainSymmetries"]),
+        "chainsym": ("masked", [("mask", "mask"), ("clean", "clean"),
+                                ("sym", "out")], ["ChainSymmetries"]),
+        "symchain": ("masked", [("mask", "mask"), ("sym", "sym"),
+                                ("clean", "clean"), ("fit", "out")],
+                     ["ColorMaskTransparency", "SymmetriesChain"]),
+        "symchainsym": ("masked", [("mask", "mask"), ("sym", "sym"),
+                                   ("clean", "clean"), ("sym", "out")],
+                        ["ColorMaskTransparency",
+                         "SymmetriesChainSymmetries"])}
+
+    def build(name, run_root):
+        src, specs, _ = shapes[name]
+        pipe = ProcessingPipeline(root_dir=run_root)
+        for i, (kind, out) in enumerate(specs):
+            cls, options = kinds[kind]
+            pipe.add_step(ProcessingStep(
+                f"{name}_{kind}{i}", cls(),
+                input_dirs=[inputs[src]] if i == 0 else None,
+                output_dirs=[out], seed=60 + i, options=options, device=dev,
+                workers=workers))
+        return pipe
+
+    sweeps = []
+    real_label = ccl.label_components
+
+    def counting_label(fg, **kw):
+        labels, iters = real_label(fg, return_iters=True, **kw)
+        sweeps.append(iters.max())
+        return labels
+
+    t_phase = time.perf_counter()
+    fused_steps, rotsym_events = {}, None
+    for name, (_, specs, classes) in shapes.items():
+        walls, runs = {}, {}
+        for fuse in (False, True):
+            run_root = base / name / ("fused" if fuse else "plain")
+            pipe = build(name, run_root)
+
+            def run(pipe=pipe, fuse=fuse):
+                # the wall leaves out the profiler's trace processing
+                t0 = time.perf_counter()
+                counts = pipe.run(progress=False, auto_fuse=fuse)
+                walls[fuse] = time.perf_counter() - t0
+                return counts
+
+            del sweeps[:]
+            ccl.label_components = counting_label
+            # the fused RotSymChain step runs under the profiler (its wall
+            # with it, which can only make the fused run look slower)
+            profiled = name == "rotsymchain" and fuse
+            try:
+                (events, counts), direct = count_direct_tiles(
+                    kernels, dev, lambda: drive(
+                        kernels, None, (lambda: profiled_step(run))
+                        if profiled else run))
+            finally:
+                ccl.label_components = real_label
+            steps = pipe.last_run_steps
+            runs[fuse] = (run_root, steps)
+            for step in steps:
+                if set(step.status_counter) != {"Success"}:
+                    require_success(step, step.metrics.items)
+            require_success(steps[0], n)
+            got = [type(s.process_function).__name__ for s in steps]
+            if fuse and got != classes:
+                raise AssertionError(f"{name}: fused to {got}, expected "
+                                     f"{classes}")
+            if not fuse and len(steps) != len(specs):
+                raise AssertionError(f"{name}: the unfused run ran {got}")
+            rotating = [s for s in steps
+                        if isinstance(s.process_function, RandomRotations)]
+            # (kernels launch on a card only)
+            want = {k: 0 for k in counts} | (
+                {"shear_rotate_packed": rotating[0].metrics.batches}
+                if rotating and torch.device(dev).type == "cuda" else {})
+            if counts != want or direct:
+                raise AssertionError(f"{name} (auto_fuse={fuse}): launch "
+                                     f"counts {counts}, expected {want}; "
+                                     f"direct tiles {direct}")
+            launches["shear_rotate_packed"] += counts["shear_rotate_packed"]
+            if fuse:
+                step = steps[-1]
+                fused_steps[name] = step
+                print(step_line(step, card))
+                every = ccl.CHECK_EVERY
+                ran = [-(-int(m) // every) * every for m in sweeps]
+                print(f"  connected components in step {step.name}: sweeps "
+                      f"a batch {ran} over {step.metrics.batches} batches "
+                      f"of up to {step.process_function.max_batch} items")
+                if rotating:
+                    print(f"  {name}: shear_rotate_packed launched "
+                          f"{counts['shear_rotate_packed']} times, once for "
+                          f"each of the fused step's "
+                          f"{step.metrics.batches} batches; direct tiles "
+                          f"{direct}")
+                if profiled:
+                    rotsym_events = events
+        plain_root, plain_steps = runs[False]
+        fused_root, fused_steps_run = runs[True]
+        n_files = same_decoded_files(plain_root / "out", fused_root / "out",
+                                     f"{name}: fused != unfused")
+        kept = {str(p) for s in fused_steps_run for p in s.output_paths}
+        elided = [out for _, out in specs
+                  if str(fused_root / out) not in kept]
+        written = [out for out in elided if (fused_root / out).exists()]
+        if written or len(elided) < 2:
+            raise AssertionError(f"{name}: elided {elided}, written {written}")
+        print(f"fan-out pipeline {name}: unfused {len(plain_steps)} steps "
+              f"{walls[False]:.3f} s, fused {[s.name for s in fused_steps_run]}"
+              f" {walls[True]:.3f} s"
+              + (" (under the profiler)" if name == "rotsymchain" else "")
+              + f"; {n_files} final files equal (names and "
+              f"decoded pixels), elided directories {elided} not written; "
+              f"card {card}")
+    line, _ = idle_line(fused_steps["rotsymchain"], rotsym_events, card)
+    print(line)
+    print(f"fan-out fusion runs: {time.perf_counter() - t_phase:.1f} s")
+
+    # one batch of each new class: the card against the CPU, byte for byte
+    from PIL import Image
+
+    first = sorted(inputs["crops"].iterdir())[0]
+    cut = base / "data" / "cut" / first.name
+    cut.parent.mkdir()
+    with Image.open(first) as im:
+        c = (min(im.size) - FANOUT_CPU_CUT) // 2
+        im.crop((c, c, c + FANOUT_CPU_CUT, c + FANOUT_CPU_CUT)).save(cut)
+    alone = {}
+    for name, step in fused_steps.items():
+        transform = step.process_function
+        rotates = isinstance(transform, RandomRotations)
+        batch = [(cut,)] if rotates else [
+            (p,) for p in sorted(step.input_paths[0].iterdir())[:2]]
+        k = len(batch)
+        on_card = one_batch(transform, batch, step.options, step.seed, dev)
+        check_batches_equal(
+            on_card, one_batch(transform, batch, step.options, step.seed,
+                               "cpu"),
+            f"{type(transform).__name__} device_fn, card != CPU")
+        shapes_ = {key: tuple(v.shape) for key, v in on_card.items()}
+        print(f"one {type(transform).__name__} batch of {k}, device_fn on "
+              f"the card == on the CPU, byte for byte: {shapes_}")
+        if rotates:
+            S = bucket_dim(math.ceil(math.hypot(
+                *Image.open(step.input_paths[0] / first.name).size)))
+            alone[name] = rotation_kernel_alone(
+                S, dev, card, type(transform).__name__,
+                step.metrics.batches, n,
+                B=transform.max_batch * ENGINE_ROTATIONS)
+    print(f"fan-out fusion phase: {time.perf_counter() - t_phase:.1f} s")
+    return alone
 
 
 def main() -> None:
@@ -1637,6 +1860,9 @@ def main() -> None:
                                                  launches)
         video_kernel = overlay_video_pipelines(root, dev, card, workers,
                                                launches)
+        fanout_kernel = fanout_fusion_pipelines(
+            root, dev, card, workers, launches, root / "A" / "crops" / "imgs",
+            root / "C" / "mask")
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -1650,7 +1876,7 @@ def main() -> None:
         "bound_ms_by_batch": {f"B={B}": bound_ms[name, B] for B in BATCHES},
         "plain_ms_by_batch": {f"B={B}": plain_ms[name, B] for B in BATCHES},
     } | ({"engine": engine_kernel, "fused_chain": stage_kernel,
-          "video_chain": video_kernel}
+          "video_chain": video_kernel} | fanout_kernel
          if name == "shear_rotate_packed" else {})
         for name, (source, replaces) in KERNELS.items()] + [{
         "name": "rev_probe", "route": "cuda", "source": CSRC + "rev_probe.cu",

@@ -9,8 +9,12 @@ labels, bucketing), ``transforms`` (``SquareCropAroundBBox``,
 ``KeepLargestComponent``, ``EnhanceImage``, ``BorderCrop``, ``FitCrop``,
 ``FusedChain`` with its stages in ``transforms.fused``,
 ``PasteOverlayOntoBackground``, ``OverlaysBorderCrop``,
-``RotationsSymmetries``, ``RotationsChain``, and the host steps with
-``frame_extraction`` and ``process_overlay_pair``), ``random``
+``RotationsSymmetries``, ``RotationsChain``, the symmetry fan-out
+composites ``RotSymChain``, ``ChainSymmetries``, ``SymmetriesChain``,
+``RotationsChainSymmetries`` and ``SymmetriesChainSymmetries``, and the
+host steps with ``frame_extraction`` and ``process_overlay_pair``),
+``fuse`` (the step fuser behind ``ProcessingPipeline.run(auto_fuse=...)``),
+``random``
 (jax.random's threefry draws, bit-exact), ``ops.*`` (plain torch twins of
 the JAX ops, ``ops.ccl`` the connected components, ``ops.compose`` the
 alpha paste, ``geometry.resize`` Pillow's fixed-point resample),
@@ -20,10 +24,8 @@ binding), ``models.chains`` (the flagship chain as an ``nn.Module``),
 ``utils`` and ``interop`` (carries the JAX package's draws across).
 
 Steps compute on ``device="cuda"`` unless told ``device="cpu"``.  Not ported
-yet: the device JPEG codec, the native C++ twins, step fusion, the fan-out
-composites with a symmetry tail (``RotSymChain``, ``ChainSymmetries``,
-``SymmetriesChain``, ``RotationsChainSymmetries``,
-``SymmetriesChainSymmetries``), meshes, the CLI and ``config``.
+yet: the device JPEG codec, the native C++ twins, meshes, the CLI and
+``config``.
 """
 
 from image_processor_pipeline_tpu_torch.pipeline import ProcessingPipeline, ProcessingStep

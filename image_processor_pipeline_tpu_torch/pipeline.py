@@ -26,9 +26,10 @@ A step runs on ``device="cuda"`` unless told otherwise, and raises when no
 card is there; ``device="cpu"`` runs the same functions on CPU tensors.
 Options of the JAX engine whose modules are not ported yet (``mesh``,
 ``host_sharded``, ``trace_dir``, ``native_compute=True``,
-``device_decode=True``, ``device_encode=True``, ``auto_fuse``) raise
-NotImplementedError naming the option; ``native_compute="auto"`` means the
-device path.
+``device_decode=True``, ``device_encode=True``) raise NotImplementedError
+naming the option; ``native_compute="auto"`` means the device path.
+``ProcessingPipeline.run(auto_fuse=...)`` rewrites the step list with the
+port's own fuser (fuse.py) exactly as the JAX engine does.
 
 Known reference defects are fixed, not reproduced (SURVEY.md §2.7 #4,5,6,11).
 """
@@ -830,8 +831,16 @@ class ProcessingPipeline:
         """Run the selected steps; optionally write an aggregated JSON
         report (per-step statuses + metrics) to ``report_path``.
 
-        ``auto_fuse`` (the JAX engine's step fusion) is not ported yet: a
-        truthy value raises NotImplementedError."""
+        ``auto_fuse=True`` collapses eligible runs of consecutive
+        deterministic steps into single fused steps before running
+        (byte-identical final outputs; the elided intermediate
+        directories are NOT written — see fuse.py for the conservative
+        eligibility rules).  ``auto_fuse="rng"`` additionally fuses RNG
+        stages (final-position EnhanceImage tails, sub-pool symmetry
+        sampling, overlays → border crop) whose fused outputs are equally
+        DISTRIBUTED but not byte-equal to the unfused run.  The returned
+        counter list matches the steps actually run, so it may be shorter
+        than ``self.steps``."""
         todo = (
             self.steps[from_step_index:from_step_index + 1]
             if only_one
@@ -844,11 +853,14 @@ class ProcessingPipeline:
                 f"auto_fuse must be False, True, 'byte' or 'rng', "
                 f"got {auto_fuse!r}")
         if auto_fuse:
-            raise NotImplementedError(
-                f"auto_fuse={auto_fuse!r}: step fusion is not ported to "
-                "PyTorch yet")
-        #: the steps this run actually executed — callers pairing names
-        #: with the returned counters use this, not self.steps
+            from image_processor_pipeline_tpu_torch.fuse import fuse_steps
+
+            todo = fuse_steps(
+                todo, verbose=progress,
+                tier="rng" if auto_fuse == "rng" else "byte")
+        #: the steps this run actually executed (fused runs replace their
+        #: constituents) — callers pairing names with the returned
+        #: counters must use this, not self.steps
         self.last_run_steps = todo
         results = []
         t0 = time.perf_counter()

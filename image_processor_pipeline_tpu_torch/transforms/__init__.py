@@ -15,6 +15,15 @@ from image_processor_pipeline_tpu_torch.transforms.fused import FusedChain
 from image_processor_pipeline_tpu_torch.transforms.rotsym import RotationsSymmetries
 from image_processor_pipeline_tpu_torch.transforms.rotchain import RotationsChain
 from image_processor_pipeline_tpu_torch.transforms.ovlborder import OverlaysBorderCrop
+from image_processor_pipeline_tpu_torch.transforms.rotsymchain import RotSymChain
+from image_processor_pipeline_tpu_torch.transforms.chainsym import ChainSymmetries
+from image_processor_pipeline_tpu_torch.transforms.symchain import SymmetriesChain
+from image_processor_pipeline_tpu_torch.transforms.rotchainsym import (
+    RotationsChainSymmetries,
+)
+from image_processor_pipeline_tpu_torch.transforms.symchainsym import (
+    SymmetriesChainSymmetries,
+)
 
 __all__ = [
     "BatchTransform",
@@ -37,4 +46,9 @@ __all__ = [
     "RotationsSymmetries",
     "RotationsChain",
     "OverlaysBorderCrop",
+    "RotSymChain",
+    "ChainSymmetries",
+    "SymmetriesChain",
+    "RotationsChainSymmetries",
+    "SymmetriesChainSymmetries",
 ]

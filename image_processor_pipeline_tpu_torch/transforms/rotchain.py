@@ -123,15 +123,21 @@ class RotationsChain(RandomRotations):
             (type(s).__name__, s.config()) for s in self.stages
         )
 
-    def device_fn(self, batch, static):
+    def rotated_slots(self, batch, static):
+        """The inherited rotations with the original in front: images
+        [B, N+1, H, W, C] and extents hs, ws [B, N+1] (slot 0 = original),
+        and each (item, slot)'s tail key [B, N+1, 2]."""
         rot = RandomRotations.device_fn(self, batch, static[:5])
         img, size = batch["image"], batch["size"]
-        B, N, H, W, C = rot["images"].shape
-        S = N + 1
         imgs = torch.cat([img[:, None], rot["images"]], dim=1)
         hs = torch.cat([size[:, :1], rot["heights"].to(size.dtype)], dim=1)
         ws = torch.cat([size[:, 1:], rot["widths"].to(size.dtype)], dim=1)
-        keys = tail_keys(batch["seed"], S).reshape(B * S, 2)
+        return imgs, hs, ws, tail_keys(batch["seed"], imgs.shape[1])
+
+    def device_fn(self, batch, static):
+        imgs, hs, ws, keys = self.rotated_slots(batch, static)
+        B, S, H, W, C = imgs.shape
+        keys = keys.reshape(B * S, 2)
         im, h, w = imgs.reshape(B * S, H, W, C), hs.reshape(-1), \
             ws.reshape(-1)
         for i, stage in enumerate(self.stages):

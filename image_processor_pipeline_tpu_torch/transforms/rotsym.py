@@ -87,6 +87,54 @@ def select_syms(syms, sym_sample, item_seed: int, slot: int):
     return selected
 
 
+def pool_selection(options: Dict, include_original: bool, item_seed: int):
+    """GenerateSymmetries' pool rules (reference symmetry.py:122-126; its
+    crash on ``choose_random > len(pool)`` fixed: warn and clamp) over a
+    fused step's ``pool`` and ``choose_random`` options.  Returns
+    ``selection(slot)``: the whole pool, 'o' appended when
+    ``include_original`` is set and the pool misses it (deterministic, the
+    byte tier), or, for ``choose_random < len(pool)``, the subset
+    ``select_syms`` draws from the per-(item, slot) tree."""
+    pool = list(options.get("pool") or ALL_SYMS)
+    invalid = [s for s in pool if s not in ALL_SYMS]
+    if invalid:
+        raise ValueError(f"pool contains invalid symmetries: {invalid}")
+    choose_random = options.get("choose_random")
+    choose_random = len(pool) if choose_random is None else choose_random
+    if choose_random > len(pool):
+        warn(f"choose_random={choose_random} exceeds pool size "
+             f"{len(pool)}; clamping")
+        choose_random = len(pool)
+    elif choose_random < 0:
+        raise ValueError(f"choose_random ({choose_random}) must be >= 0")
+
+    def selection(slot: int) -> List[str]:
+        if choose_random >= len(pool):
+            selected = list(pool)
+            if include_original and "o" not in set(selected):
+                selected.append("o")
+            return selected
+        return select_syms(None, (pool, choose_random, include_original),
+                           item_seed, slot)
+
+    return selection
+
+
+def emit_views(img: np.ndarray, syms, path_of, saved: List[Path]) -> None:
+    """Write each dihedral ``sym`` of ``syms`` of ``img`` to ``path_of(sym)``
+    as a numpy flip view, appending each written path to ``saved``; through
+    ``encode_image``, GenerateSymmetries' encoder (even the 'o' copy is a
+    re-encode, reference symmetry.py:133).  A failed encode is tolerated
+    per sym with a warning, as GenerateSymmetries does."""
+    for sym in syms:
+        p = path_of(sym)
+        try:
+            encode_image(_VIEW[sym](img), p)
+            saved.append(p)
+        except Exception as e:  # noqa: BLE001 — per-sym tolerance
+            warn(f"failed to save symmetry {sym!r} for {p.name}: {e}")
+
+
 class RotationsSymmetries(RandomRotations):
     """RandomRotations ∘ GenerateSymmetries in one step.
 
@@ -118,53 +166,19 @@ class RotationsSymmetries(RandomRotations):
                 "symmetries) and/or 'sym_include_original' (append 'o' "
                 "when the pool misses it)"
             )
-        pool = list(options.get("pool") or ALL_SYMS)
-        invalid = [s for s in pool if s not in ALL_SYMS]
-        if invalid:
-            raise ValueError(f"pool contains invalid symmetries: {invalid}")
-        choose_random = options.get("choose_random")
-        choose_random = len(pool) if choose_random is None else choose_random
-        if choose_random > len(pool):
-            warn(
-                f"choose_random={choose_random} exceeds pool size "
-                f"{len(pool)}; clamping"
-            )
-            choose_random = len(pool)
-        elif choose_random < 0:
-            raise ValueError(f"choose_random ({choose_random}) must be >= 0")
-        sym_include_original = options.get("sym_include_original", True)
-
+        selection = pool_selection(
+            options, options.get("sym_include_original", True),
+            item["_seed"])
         output_prefix = options.get("output_prefix", "r")
         original_key = options.get("original_key", "r000")
         key_format = options.get("rotation_key_format", "{prefix}{index:03d}")
 
-        def selection(rotation_index: int) -> List[str]:
-            if choose_random >= len(pool):
-                selected = list(pool)  # whole pool: deterministic
-                if sym_include_original and "o" not in set(selected):
-                    selected.append("o")
-                return selected
-            # sub-pool sampling: per-(item, rotation) tree — see the
-            # module docstring.  select_syms IS the convention (shared
-            # with the chain fan-out composites, which select the same
-            # subsets per seed)
-            return select_syms(
-                None, (pool, choose_random, sym_include_original),
-                item["_seed"], rotation_index)
-
         saved: List[Path] = []
 
         def emit(base: np.ndarray, rotation_key: str, rotation_index: int):
-            for sym in selection(rotation_index):
-                p = target / f"{stem}_{rotation_key}_{sym}.png"
-                try:
-                    # encode_image = GenerateSymmetries' encoder (even the
-                    # 'o' copy is a re-encode, reference symmetry.py:133)
-                    encode_image(_VIEW[sym](base), p)
-                    saved.append(p)
-                except Exception as e:  # noqa: BLE001 — per-sym tolerance
-                    warn(f"failed to save symmetry {sym!r} for "
-                         f"{p.name}: {e}")
+            emit_views(base, selection(rotation_index),
+                       lambda sym: target / f"{stem}_{rotation_key}_{sym}.png",
+                       saved)
 
         if options.get("rot_include_original", True):
             try:

@@ -43,6 +43,12 @@ PORT_MODULES = (
     "image_processor_pipeline_tpu_torch.transforms.ovlborder",
     "image_processor_pipeline_tpu_torch.transforms.overlays_legacy",
     "image_processor_pipeline_tpu_torch.transforms.video",
+    "image_processor_pipeline_tpu_torch.transforms.rotsymchain",
+    "image_processor_pipeline_tpu_torch.transforms.chainsym",
+    "image_processor_pipeline_tpu_torch.transforms.symchain",
+    "image_processor_pipeline_tpu_torch.transforms.rotchainsym",
+    "image_processor_pipeline_tpu_torch.transforms.symchainsym",
+    "image_processor_pipeline_tpu_torch.fuse",
     "image_processor_pipeline_tpu_torch.transforms.rotsym",
     "image_processor_pipeline_tpu_torch.transforms.rotchain",
     "image_processor_pipeline_tpu_torch.transforms.crop_dummy",

@@ -894,3 +894,107 @@ def test_rotation_kernel_at_the_video_frames_shape(cuda_device,
     want = geometry.rotate_square_shear_by(imgs, *shifts)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and int(direct_tiles) == 0
+
+
+# -- the symmetry fan-out composites and auto_fuse -----------------------------
+
+FANOUT = ("ChainSymmetries", "SymmetriesChain", "SymmetriesChainSymmetries",
+          "RotSymChain", "RotationsChainSymmetries")
+
+
+def _fanout(name):
+    from image_processor_pipeline_tpu_torch import transforms
+    from image_processor_pipeline_tpu_torch.transforms import fused
+
+    stages = [fused.ColorMask(MASK_RANGES, input_alpha="replace"),
+              fused.Cleanup(20), fused.FitCrop()]
+    syms = ("o", "h", "v", "hv")
+    if name == "ChainSymmetries":
+        return transforms.ChainSymmetries(stages)
+    if name == "SymmetriesChainSymmetries":
+        return transforms.SymmetriesChainSymmetries(stages, syms, ("hv", "o"))
+    return getattr(transforms, name)(stages, syms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FANOUT)
+def test_fanout_batch_on_card_matches_the_cpu(cuda_device, direct_tiles,
+                                              name):
+    """One batch of each class: device_fn on the card equals the same batch
+    on the CPU byte for byte; the rotation-headed ones launch the rotation
+    kernel once, with no direct tile."""
+    step = _fanout(name)
+    rotates = name.startswith("Rot")
+    rng = np.random.default_rng(len(name))
+    B, H = 4, 128
+    img = rng.integers(0, 256, (B, H // 4, H // 4, 4), np.uint8)
+    img = img.repeat(4, axis=1).repeat(4, axis=2)
+    img[..., 3] = np.where(img[..., 0] > 70, 255, 0)
+    side = int(H / np.sqrt(2)) if rotates else H
+    size = rng.integers(side // 2, side + 1, (B, 2)).astype(np.int32)
+    seeds = rng.integers(0, 2**31, B).astype(np.uint32)
+    options = {"num_rotations": 3, "method": "shear"} if rotates else {}
+    static = step.static_args(options, ())
+    outs = {}
+    for device in ("cpu", cuda_device):
+        kernels.reset_launch_counts()
+        outs[str(device)] = step.device_fn(
+            {"image": torch.as_tensor(img, device=device),
+             "size": torch.as_tensor(size, device=device), "seed": seeds},
+            static)
+        torch.cuda.synchronize()
+        if device != "cpu":
+            assert kernels.launch_counts["shear_rotate_packed"] \
+                == int(rotates)
+    assert int(direct_tiles) == 0
+    got, want = outs["cuda:0"], outs["cpu"]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def _fused_pipeline(root, imgs, device):
+    from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
+                                                    ProcessingStep)
+    from image_processor_pipeline_tpu_torch.transforms import (
+        ColorMaskTransparency, FitCrop, GenerateSymmetries,
+        KeepLargestComponent, RandomRotations)
+
+    pipe = ProcessingPipeline(root_dir=root)
+    for i, (transform, out, options) in enumerate((
+            (RandomRotations(), "rot", {"num_rotations": 3,
+                                        "method": "shear"}),
+            (GenerateSymmetries(), "sym", {}),
+            (ColorMaskTransparency(), "mask",
+             {"color_ranges_to_exclude_hsv": MASK_RANGES}),
+            (KeepLargestComponent(), "clean", {"min_component_size": 20}),
+            (FitCrop(), "out", {}))):
+        pipe.add_step(ProcessingStep(
+            f"s{i}", transform, input_dirs=[imgs] if i == 0 else None,
+            output_dirs=[out], seed=10 + i, options=options, device=device,
+            workers=2))
+    return pipe
+
+
+@pytest.mark.cuda
+def test_auto_fuse_on_card_writes_the_cpu_files(cuda_device, direct_tiles,
+                                                tmp_path):
+    """rotations -> symmetry -> mask -> cleanup -> fit crop fuses to one
+    RotSymChain step on either device; on the card it launches the
+    rotation kernel once a batch, and both write the same files."""
+    imgs, _ = _engine_dataset(tmp_path)
+    for device in (cuda_device, "cpu"):
+        pipe = _fused_pipeline(tmp_path / str(device)[:4], imgs, device)
+        kernels.reset_launch_counts()
+        counts = pipe.run(progress=False, auto_fuse=True)
+        step, = pipe.last_run_steps
+        assert type(step.process_function).__name__ == "RotSymChain"
+        assert counts == [{"Success": 12}]
+        if device != "cpu":
+            assert kernels.launch_counts["shear_rotate_packed"] \
+                == step.metrics.batches >= 3
+        assert not (tmp_path / str(device)[:4] / "sym").exists()
+    assert int(direct_tiles) == 0
+    out = tmp_path / "cuda" / "out"
+    _assert_same_dirs(out, tmp_path / "cpu" / "out",
+                      len(list(out.iterdir())))

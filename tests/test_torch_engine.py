@@ -98,6 +98,16 @@ def port_sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def test_port_sources_hold_the_fan_out_modules():
+    """The import rule below covers the fuser and the five symmetry
+    fan-out composites."""
+    names = {str(p.relative_to(PORT)) for p in port_sources()
+             if PORT in p.parents}
+    assert {"fuse.py", "transforms/rotsymchain.py", "transforms/chainsym.py",
+            "transforms/symchain.py", "transforms/rotchainsym.py",
+            "transforms/symchainsym.py"} <= names
+
+
 @pytest.mark.parametrize("path", port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
@@ -514,11 +524,14 @@ def test_auto_and_false_mean_the_device_path(dataset, options):
 
 @pytest.mark.parametrize("auto_fuse", [True, "byte", "rng"])
 def test_auto_fuse_raises(dataset, auto_fuse):
+    """Every tier runs (a lone crop step has nothing to fuse and runs as
+    it is); only a misspelt tier raises."""
     root, imgs, labels = dataset
     pipe = ProcessingPipeline(root_dir=root)
     pipe.add_step(crop_step(root, imgs, labels))
-    with pytest.raises(NotImplementedError, match="auto_fuse"):
-        pipe.run(progress=False, auto_fuse=auto_fuse)
+    assert pipe.run(progress=False, auto_fuse=auto_fuse) \
+        == [Counter(Success=12)]
+    assert pipe.last_run_steps == pipe.steps
     with pytest.raises(ValueError, match="auto_fuse"):
         pipe.run(progress=False, auto_fuse="RNG")
 

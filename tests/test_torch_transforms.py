@@ -552,13 +552,15 @@ def test_cleanup_format_gates_match_jax(tmp_path):
 
 
 def test_transforms_export_what_the_jax_package_exports_so_far():
-    assert set(ttransforms.__all__) <= set(jtransforms.__all__)
-    assert len(ttransforms.__all__) == 20
+    assert set(ttransforms.__all__) == set(jtransforms.__all__)
+    assert len(ttransforms.__all__) == 25
     for name in ("FusedChain", "EnhanceImage", "ColorMaskTransparency",
                  "BorderCrop", "FitCrop", "KeepLargestComponent",
                  "PasteOverlayOntoBackground", "OverlaysBorderCrop",
                  "frame_extraction", "process_overlay_pair",
-                 "RotationsSymmetries", "RotationsChain"):
+                 "RotationsSymmetries", "RotationsChain", "RotSymChain",
+                 "ChainSymmetries", "SymmetriesChain",
+                 "RotationsChainSymmetries", "SymmetriesChainSymmetries"):
         assert name in ttransforms.__all__ and hasattr(ttransforms, name)
 
 
