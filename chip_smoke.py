@@ -45,7 +45,14 @@ frames extracted, then FusedChain([Rotate(shear), Flip, Enhance]) on 896
 px canvases) and the composites RotationsSymmetries and RotationsChain
 with method="shear", each step's launches read on its own, one batch of
 every new step held against the same batch on the CPU, and the rotation
-kernel alone at the frames' canvas.  It prints the card's name and power
+kernel alone at the frames' canvas; then the symmetry fan-out pipelines,
+each with and without auto_fuse; then the codec phase: whether the native
+IO engine builds (its compiler message when it does not), pipeline J
+(crop_square to .jpg, rotations by shear to JPEG, symmetry) over 68 JPEGs
+made from a seed, once with the codec gates on "auto" and once off, the
+two runs' files byte for byte and the rotation kernel's launches, and
+the device JPEG halves on a [32, 512, 512, 3] batch on the card against
+the CPU, timed.  It prints the card's name and power
 limit, a JSON line of the kernels and, last, a JSON status line.  Any
 failed phase raises, so the status line is printed only when every phase
 passed.  Without a CUDA card it exits non-zero.
@@ -109,6 +116,9 @@ COMPOSITE_ITEMS = 16
 # 20 canvases of 768, some 500 connected-component sweeps)
 FANOUT_ITEMS = 8
 FANOUT_CPU_CUT = 160
+# the codec phase: pipeline J over this many JPEGs of the engine's size
+# (and four odd ones), twice
+CODEC_IMAGES = 64
 
 
 def kernel_inputs(SIN, S, B, seed, dev):
@@ -335,11 +345,29 @@ def rotate_bytes(S, B, C):
     return B * (2 * S * S * C + 2 * 4 * S + 4)
 
 
+def engine_image(rng, yy, xx):
+    """One RGB image on the grid ``yy``, ``xx`` (a gradient with one filled
+    rectangle for each box) and its YOLO label text, one to three boxes,
+    each in a window that a square crop of the shorter side can hold."""
+    H, W = yy.shape
+    p0, p1, p2 = rng.integers(0, 256, 3)
+    img = np.stack([(yy // 2 + xx // 3 + p0) % 256, (xx // 2 + p1) % 256,
+                    (yy // 3 + xx // 5 + p2) % 256], -1).astype(np.uint8)
+    lines = []
+    for _ in range(int(rng.integers(1, 4))):
+        cx, cy = rng.uniform(0.3, 0.7, 2)
+        bw, bh = rng.uniform(0.05, 0.2), rng.uniform(0.05, 0.3)
+        x1, x2 = int((cx - bw / 2) * W), int((cx + bw / 2) * W)
+        y1, y2 = int((cy - bh / 2) * H), int((cy + bh / 2) * H)
+        img[y1:y2, x1:x2] = rng.integers(0, 256, 3)
+        lines.append(f"{rng.integers(0, 5)} {cx:.6f} {cy:.6f} {bw:.6f} "
+                     f"{bh:.6f}")
+    return img, "\n".join(lines) + "\n"
+
+
 def write_engine_dataset(root, n, seed, workers):
-    """``n`` RGB PNGs of ENGINE_H x ENGINE_W (a gradient with one filled
-    rectangle for each box) under root/imgs and their YOLO label files, one
-    to three boxes each, under root/labels; every box lies in a window that
-    a square crop of the shorter side can hold."""
+    """``n`` RGB PNGs of ENGINE_H x ENGINE_W (engine_image) under root/imgs
+    and their YOLO label files under root/labels."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -348,20 +376,8 @@ def write_engine_dataset(root, n, seed, workers):
     yy, xx = np.mgrid[0:ENGINE_H, 0:ENGINE_W]
     jobs = []
     for i in range(n):
-        p0, p1, p2 = rng.integers(0, 256, 3)
-        img = np.stack([(yy // 2 + xx // 3 + p0) % 256, (xx // 2 + p1) % 256,
-                        (yy // 3 + xx // 5 + p2) % 256], -1).astype(np.uint8)
-        lines = []
-        for _ in range(int(rng.integers(1, 4))):
-            cx, cy = rng.uniform(0.3, 0.7, 2)
-            bw, bh = rng.uniform(0.05, 0.2), rng.uniform(0.05, 0.3)
-            x1, x2 = int((cx - bw / 2) * ENGINE_W), int((cx + bw / 2) * ENGINE_W)
-            y1, y2 = int((cy - bh / 2) * ENGINE_H), int((cy + bh / 2) * ENGINE_H)
-            img[y1:y2, x1:x2] = rng.integers(0, 256, 3)
-            lines.append(f"{rng.integers(0, 5)} {cx:.6f} {cy:.6f} {bw:.6f} "
-                         f"{bh:.6f}")
-        (root / "labels" / f"im_{i:04d}.txt").write_text(
-            "\n".join(lines) + "\n")
+        img, lines = engine_image(rng, yy, xx)
+        (root / "labels" / f"im_{i:04d}.txt").write_text(lines)
         jobs.append((img, root / "imgs" / f"im_{i:04d}.png"))
     with ThreadPoolExecutor(workers) as ex:
         list(ex.map(lambda job: Image.fromarray(job[0]).save(job[1]), jobs))
@@ -1172,6 +1188,253 @@ def fanout_fusion_pipelines(root, dev, card, workers, launches, crops_dir,
     return alone
 
 
+def write_codec_dataset(root, n, seed, workers):
+    """``n`` JPEGs of ENGINE_W x ENGINE_H at q90 with 4:2:0 chroma (the
+    engine dataset's gradients and filled boxes, under noise of one grey
+    level) and their YOLO labels under root/imgs and root/labels, and four
+    odd files of the same kind: 4:4:4, 4:2:2, grayscale and progressive."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    (root / "imgs").mkdir(parents=True)
+    (root / "labels").mkdir()
+    yy, xx = np.mgrid[0:ENGINE_H, 0:ENGINE_W]
+    odd = {n: {"subsampling": 0}, n + 1: {"subsampling": 1},
+           n + 2: {"gray": True}, n + 3: {"progressive": True}}
+    jobs = []
+    for i in range(n + len(odd)):
+        img, lines = engine_image(rng, yy, xx)
+        img = np.clip(img + rng.integers(-1, 2, img.shape), 0, 255).astype(
+            np.uint8)
+        (root / "labels" / f"im_{i:04d}.txt").write_text(lines)
+        jobs.append((img, root / "imgs" / f"im_{i:04d}.jpg",
+                     dict(odd.get(i, {}))))
+
+    def save(job):
+        img, path, kw = job
+        im = Image.fromarray(img)
+        if kw.pop("gray", False):
+            im = im.convert("L")
+        im.save(path, quality=90, **kw)
+
+    with ThreadPoolExecutor(workers) as ex:
+        list(ex.map(save, jobs))
+    return root / "imgs", root / "labels"
+
+
+def pipeline_j(root, imgs, labels, dev, codec, workers, decode_tally):
+    """Pipeline J under ``root`` on ``dev`` with the codec options
+    ``codec``: crop_square (.jpg at q95), rotations (method "shear", 4 an
+    image, output_format "jpeg" at q75), symmetry (.jpg at q95).  Runs the
+    steps one by one, the rotations step under the profiler; returns the
+    steps, each with ``decode`` (its items through the sparse read, the
+    dense re-read and the host decode, from ``decode_tally``) and the
+    rotations step's device events."""
+    from image_processor_pipeline_tpu_torch import (ProcessingPipeline,
+                                                    ProcessingStep)
+    from image_processor_pipeline_tpu_torch.transforms import (
+        GenerateSymmetries, RandomRotations, SquareCropAroundBBox)
+
+    pipe = ProcessingPipeline(root_dir=root)
+    common = {"workers": workers, "device": dev, "save_log": True}
+    pipe.add_step(ProcessingStep(
+        "crop_square", SquareCropAroundBBox(), input_dirs=[imgs, labels],
+        output_dirs=["crops/imgs", "crops/labels"], pairing_method="zip",
+        seed=21, options=dict(codec), **common))
+    pipe.add_step(ProcessingStep(
+        "rotations", RandomRotations(), input_dirs=[root / "crops" / "imgs"],
+        output_dirs=["rot"], seed=22, options=dict(
+            codec, method="shear", num_rotations=ENGINE_ROTATIONS,
+            output_format="jpeg"), **common))
+    pipe.add_step(ProcessingStep(
+        "symmetry", GenerateSymmetries(), output_dirs=["sym"], seed=23,
+        options=dict(codec), **common))
+    events = None
+    for i, step in enumerate(pipe.steps):
+        decode_tally.clear()
+        if step.name == "rotations":
+            events = profiled_step(lambda: pipe.run(
+                from_step_index=i, only_one=True, progress=False))
+        else:
+            pipe.run(from_step_index=i, only_one=True, progress=False)
+        step.decode = {k: decode_tally.get(k, 0)
+                       for k in ("sparse", "dense", "host")}
+    return pipe.steps, events
+
+
+def codec_device_halves(dev, card, B=32, S=512):
+    """encode_start_sparse and decode_finish_sparse (ops/jpeg.py) on one
+    [B, S, S, 3] batch at q95 with encode_shrink's cap, on the card and on
+    the CPU, byte for byte, and the round trip through both; their device
+    milliseconds a call, the bytes each must move and its torch launches a
+    call.  Returns the measurements."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_processor_pipeline_tpu_torch.ops import jpeg
+
+    rng = np.random.default_rng(31)
+    yy, xx = np.mgrid[0:S, 0:S]
+    rgb = np.stack([engine_image(rng, yy, xx)[0] for _ in range(B)])
+    rgb = np.clip(rgb + rng.integers(-1, 2, rgb.shape), 0, 255).astype(
+        np.uint8)
+    cap = max(1024, int(S * S * 3 // 2 * 0.25))
+    qt = jpeg.quality_qtabs(95).astype(np.int32)
+    kw_enc = dict(cap_h=S, cap_w=S, cap_nnz=cap)
+    kw_dec = dict(samp=(2, 2), cap_h=S, cap_w=S, cap_by_c=S // 16,
+                  cap_bx_c=S // 16)
+    args = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        args[where] = [torch.as_tensor(a, device=d) for a in (
+            rgb, np.full(B, S, np.int32), np.full(B, S, np.int32), qt,
+            np.repeat(qt[None], B, 0))]
+    enc = {w: jpeg.encode_start_sparse(*a[:4], **kw_enc)
+           for w, a in args.items()}
+    for name, x, y in zip(("idx", "val", "nnz"), enc["card"], enc["cpu"]):
+        check_equal(x.cpu(), y, f"encode_start_sparse {name}, card != CPU")
+    nnz = enc["cpu"][2]
+    if int(nnz.max()) > cap:
+        raise AssertionError(f"codec halves: an item overflowed the cap "
+                             f"{cap}: nnz {nnz.tolist()}")
+    dec = {w: jpeg.decode_finish_sparse(e[0], e[1], args[w][4], args[w][1],
+                                        args[w][2], **kw_dec)
+           for w, e in enc.items()}
+    check_equal(dec["card"].cpu(), dec["cpu"],
+                "decode_finish_sparse of encode_start_sparse, card != CPU")
+    err = (dec["cpu"].int() - torch.as_tensor(rgb).int()).abs()
+    a = args["card"]
+    idx, val, _ = enc["card"]
+    calls = {
+        "encode_start_sparse": lambda: jpeg.encode_start_sparse(*a[:4],
+                                                                **kw_enc),
+        "decode_finish_sparse": lambda: jpeg.decode_finish_sparse(
+            idx, val, a[4], a[1], a[2], **kw_dec)}
+    moved = {"encode_start_sparse": B * S * S * 3 + B * cap * 6 + B * 4,
+             "decode_finish_sparse": B * cap * 6 + B * S * S * 3}
+    out = {}
+    for name, fn in calls.items():
+        ms = device_ms(fn, calls=10)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n_launch = sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "emcpy" not in e.name and "emset" not in e.name)
+        bound = moved[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "bytes": moved[name], "bound_ms": bound,
+                     "torch_launches": n_launch, "shape": [B, S, S, 3]}
+        print(f"codec {name} [{B}, {S}, {S}, 3] q95, cap {cap}: {ms:.4f} ms "
+              f"of device time a call (CUDA-event window of 10 calls), "
+              f"{moved[name]} bytes, bound {bound:.4f} ms at 3.35 TB/s "
+              f"(share {bound / ms:.4f}), {n_launch} torch launches a call; "
+              f"card {card}")
+    print(f"codec device halves: encode_start_sparse and decode_finish_sparse"
+          f" on the card == on the CPU, byte for byte (idx, val, nnz and "
+          f"the round trip); nnz {int(nnz.min())}..{int(nnz.max())} of cap "
+          f"{cap}; round trip against the input: max abs err "
+          f"{int(err.max())}, mean {float(err.float().mean()):.4f}")
+    return out
+
+
+def codec_pipelines(root, dev, card, workers, launches):
+    """Pipeline J over CODEC_IMAGES JPEGs (and four odd ones) on ``dev``,
+    once with the codec gates on "auto" and once with device_decode and
+    device_encode False: every item a Success, the two runs' files
+    byte-identical, the file counts right, the rotation kernel launched
+    once a rotations batch with no direct tile; then the device halves
+    alone.  Adds the kernel's launches to ``launches``; returns the
+    phase's measurements."""
+    from image_processor_pipeline_tpu_torch import kernels
+    from image_processor_pipeline_tpu_torch.io import images as io_images
+    from image_processor_pipeline_tpu_torch.io import native
+
+    t_phase = time.perf_counter()
+    status = ("available" if native.available()
+              else f"unavailable: {native.build_error()}")
+    print(f"native_io: {status}".replace("\n", " | "))
+    base = root / "J"
+    imgs, labels = write_codec_dataset(base / "data", CODEC_IMAGES, 19,
+                                       workers)
+    n = CODEC_IMAGES + 4
+
+    # each group decode's items by where they went; a group the hybrid
+    # decode gave back (no library, a canvas it cannot take) is host decoded
+    tally = {}
+    real_group = io_images._decode_group_device
+
+    def tallied(items, *a, stats=None, **k):
+        stats = {} if stats is None else stats
+        before = dict(stats)
+        got = real_group(items, *a, stats=stats, **k)
+        for key in ("sparse", "dense", "host"):
+            tally[key] = tally.get(key, 0) + stats.get(key, 0) \
+                - before.get(key, 0)
+        if got is None:
+            tally["host"] = tally.get("host", 0) + len(items)
+        return got
+
+    runs = {}
+    io_images._decode_group_device = tallied
+    try:
+        for label, codec in (("auto", {}), ("off", {
+                "device_decode": False, "device_encode": False})):
+            t0 = time.perf_counter()
+            ((steps, events), direct), counts = drive(
+                kernels, None, lambda: count_direct_tiles(
+                    kernels, dev, lambda: pipeline_j(
+                        base / label, imgs, labels, dev, codec, workers,
+                        tally)))
+            runs[label] = steps
+            crop, rot, sym = steps
+            for step, items in ((crop, n), (rot, n), (sym, n * 5)):
+                require_success(step, items)
+                m = step.metrics
+                print(f"codec pipeline J ({label}): {step_line(step, card)}"
+                      f"; d2h_bytes_full {m.d2h_bytes_full}, "
+                      f"d2h_bytes_fetched {m.d2h_bytes_fetched}; decode "
+                      f"{step.decode}")
+            line, _ = idle_line(rot, events, card)
+            print(f"codec pipeline J ({label}): {line}")
+            want = {name: 0 for name in counts} | {
+                "shear_rotate_packed": rot.metrics.batches}
+            if counts != want or direct:
+                raise AssertionError(
+                    f"codec pipeline J ({label}): launch counts {counts}, "
+                    f"expected {want}; direct tiles {direct}")
+            launches["shear_rotate_packed"] += counts["shear_rotate_packed"]
+            print(f"codec pipeline J ({label}): shear_rotate_packed launched "
+                  f"{counts['shear_rotate_packed']} times, once for each of "
+                  f"the rotations step's {rot.metrics.batches} batches; "
+                  f"direct tiles {direct}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        io_images._decode_group_device = real_group
+    files = {}
+    for d, want_n in (("crops/imgs", n), ("crops/labels", n), ("rot", n * 5),
+                      ("sym", None)):
+        got = {p.name: p.read_bytes()
+               for p in sorted((base / "auto" / d).iterdir())}
+        off = {p.name: p.read_bytes()
+               for p in sorted((base / "off" / d).iterdir())}
+        if got != off:
+            raise AssertionError(f"codec pipeline J: {d} differs between "
+                                 f"the gates on auto and off")
+        if want_n is not None and len(got) != want_n or not got:
+            raise AssertionError(f"codec pipeline J: {len(got)} files in "
+                                 f"{d}, expected {want_n}")
+        files[d] = len(got)
+    print(f"codec pipeline J: the files of the gates on auto == off, byte "
+          f"for byte: {files}")
+    halves = codec_device_halves(dev, card)
+    print(f"codec phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"native_io": status, "device_halves": halves,
+            "d2h": {label: {s.name: [s.metrics.d2h_bytes_full,
+                                     s.metrics.d2h_bytes_fetched]
+                            for s in steps}
+                    for label, steps in runs.items()}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1687,8 +1950,8 @@ def main() -> None:
         GenerateSymmetries, RandomRotations, SquareCropAroundBBox,
         copy_img_with_labels, crop_square, rotations)
 
-    print(f"codec: {io_images.CODEC} {PIL.__version__} (host decode and "
-          f"encode)")
+    print(f"codec: the native IO engine where it builds, else Pillow "
+          f"{PIL.__version__} (host decode and encode)")
     workers = os.cpu_count() or 1
     n = ENGINE_IMAGES
     crop_seed, rot_seed, sym_seed = 11, 12, 13
@@ -1863,6 +2126,7 @@ def main() -> None:
         fanout_kernel = fanout_fusion_pipelines(
             root, dev, card, workers, launches, root / "A" / "crops" / "imgs",
             root / "C" / "mask")
+        codec = codec_pipelines(root, dev, card, workers, launches)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -1876,7 +2140,7 @@ def main() -> None:
         "bound_ms_by_batch": {f"B={B}": bound_ms[name, B] for B in BATCHES},
         "plain_ms_by_batch": {f"B={B}": plain_ms[name, B] for B in BATCHES},
     } | ({"engine": engine_kernel, "fused_chain": stage_kernel,
-          "video_chain": video_kernel} | fanout_kernel
+          "video_chain": video_kernel, "codec": codec} | fanout_kernel
          if name == "shear_rotate_packed" else {})
         for name, (source, replaces) in KERNELS.items()] + [{
         "name": "rev_probe", "route": "cuda", "source": CSRC + "rev_probe.cu",

@@ -7,13 +7,11 @@ migrated 1:1 from the reference (reference pipeline.py:538, 564-566 runs
 every transform as its own directory-to-directory stage) is written as
 per-stage steps and only gets fusion if the user hand-rewrites it around
 transforms.fused.FusedChain.  ``auto_fuse=True`` does that rewrite
-automatically at run time, exactly as the JAX engine does, with three
+automatically at run time, exactly as the JAX engine does, with two
 differences:
 
 - steps compute on a ``device``: a run fuses only when all its steps name
   the same one (_engine_compatible), and the fused step carries it;
-- the RGBA-PNG head probe (_rgba_png) is io/images.py:probe_bands alone: a
-  file it does not classify as 8-bit RGBA (16-bit RGBA included) declines;
 - ``mesh`` and the _ENGINE_KEYS options ride onto the fused step as they
   are, so a fused step raises the NotImplementedError its unfused steps
   would.
@@ -95,7 +93,7 @@ import os
 from pathlib import Path
 from typing import List, Optional, Tuple
 
-from image_processor_pipeline_tpu_torch.io.images import probe_bands
+from image_processor_pipeline_tpu_torch.io import native
 
 
 def _norm(p) -> Path:
@@ -226,8 +224,16 @@ def _rgba_png(f: Path) -> bool:
     conservatively too."""
     if f.suffix.lower() != ".png":
         return False
-    meta = probe_bands(f)
-    return meta is not None and meta[2] == 4
+    meta = native.probe_bands(f)
+    if meta is not None:
+        return meta[2] == 4
+    try:  # native engine unavailable: Pillow header-only fallback
+        from PIL import Image
+
+        with Image.open(f) as im:
+            return im.mode == "RGBA"
+    except Exception:  # noqa: BLE001 — unreadable file: decline
+        return False
 
 
 def _png_only_dir(path) -> bool:

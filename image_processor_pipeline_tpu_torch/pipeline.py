@@ -24,10 +24,14 @@ ProcessPoolExecutor (pipeline.py:358-433) with on-device data parallelism.
 
 A step runs on ``device="cuda"`` unless told otherwise, and raises when no
 card is there; ``device="cpu"`` runs the same functions on CPU tensors.
-Options of the JAX engine whose modules are not ported yet (``mesh``,
-``host_sharded``, ``trace_dir``, ``native_compute=True``,
-``device_decode=True``, ``device_encode=True``) raise NotImplementedError
-naming the option; ``native_compute="auto"`` means the device path.
+``options["device_decode"]`` and ``options["device_encode"]`` ("auto":
+on when the step's device is a CUDA card) ship sparse JPEG coefficients
+between host and device instead of pixels (ops/jpeg.py); an explicit True
+raises when the native IO engine they need could not be built.  Options
+of the JAX engine whose modules are not ported yet (``mesh``,
+``host_sharded``, ``trace_dir``, ``native_compute=True``) raise
+NotImplementedError naming the option; ``native_compute="auto"`` means
+the device path.
 ``ProcessingPipeline.run(auto_fuse=...)`` rewrites the step list with the
 port's own fuser (fuse.py) exactly as the JAX engine does.
 
@@ -178,13 +182,23 @@ class ProcessingStep:
             unported.append("host_sharded")
         if self.trace_dir:
             unported.append("trace_dir")
-        for name in ("native_compute", "device_decode", "device_encode"):
-            if self.options.get(name) is True:
-                unported.append(f"options[{name!r}]=True")
+        if self.options.get("native_compute") is True:
+            unported.append("options['native_compute']=True")
         if unported:
             raise NotImplementedError(
                 f"step {self.name!r}: not ported to PyTorch yet: "
                 + ", ".join(unported))
+        codec = [n for n in ("device_decode", "device_encode")
+                 if self.options.get(n) is True]
+        if codec:
+            from image_processor_pipeline_tpu_torch.io import native
+
+            if not native.available():
+                raise RuntimeError(
+                    f"step {self.name!r}: "
+                    + ", ".join(f"options[{n!r}]=True" for n in codec)
+                    + " needs the native IO engine, which is unavailable: "
+                    + str(native.build_error()))
 
     def _device(self):
         """The step's torch device; raises when it names a CUDA card and
@@ -262,11 +276,19 @@ class ProcessingStep:
                     total = max(0, total - skipped)
 
         from image_processor_pipeline_tpu_torch.transforms.base import BatchTransform
+        from image_processor_pipeline_tpu_torch.io import native as _native_io
 
-        if isinstance(self.process_function, BatchTransform):
-            self._run_batched(indexed, total, progress)
-        else:
-            self._run_host(indexed, total, progress)
+        # auto-tiled PNG divides the cores by this step's saver width
+        # (io/native.py:set_encoder_concurrency); the previous value comes
+        # back after the step, so a caller's own setting survives it
+        prev_concurrency = _native_io.set_encoder_concurrency(self.workers)
+        try:
+            if isinstance(self.process_function, BatchTransform):
+                self._run_batched(indexed, total, progress)
+            else:
+                self._run_host(indexed, total, progress)
+        finally:
+            _native_io.set_encoder_concurrency(prev_concurrency)
 
         self.status_counter = Counter(log["status"] for log in self.process_logs)
         dt = time.perf_counter() - t0
@@ -405,12 +427,19 @@ class ProcessingStep:
         import threading
         from collections import defaultdict, deque
 
+        import torch
+
         transform = self.process_function
         from image_processor_pipeline_tpu_torch.io.batching import Bucketizer
         from image_processor_pipeline_tpu_torch.io.images import fill_pending_images
+        from image_processor_pipeline_tpu_torch.ops import jpeg as djpeg
         from image_processor_pipeline_tpu_torch.transforms.base import host_zeros
 
         device = self._device()
+        # the sticky device_encode/device_decode disables are per-RUN
+        # state: a reused transform instance (resume pass, same object in
+        # two steps) must not inherit a previous run's dense-content trip
+        djpeg.reset_codec_gates(transform)
         _tune_allocator()
         timer = Timer()
         base_seed = self.seed if self.seed is not None else random.getrandbits(31)
@@ -438,6 +467,20 @@ class ProcessingStep:
 
         def saver(chunk, n_valid, out_dev):
             with timer.measure("save"):
+                if transform.shrinks_output:
+                    # meter by output residency: a batch whose only tensor
+                    # is a stashed underscore key (symmetry's _input_dev)
+                    # still fetches real bytes in its shrink hook
+                    resident = any(isinstance(x, torch.Tensor)
+                                   for x in _leaves(out_dev, private=True))
+                    full = _tree_bytes(out_dev) if resident else 0
+                    out_dev = transform.shrink_output(
+                        out_dev, chunk, self.options)
+                    if resident:
+                        with logs_lock:
+                            self.metrics.d2h_bytes_full += full
+                            self.metrics.d2h_bytes_fetched += (
+                                _tree_bytes(out_dev))
                 outs = transform.materialize_batch(out_dev, n_valid)
                 for item, out in zip(chunk[:n_valid], outs):
                     entry = item["_entry"]
@@ -466,16 +509,32 @@ class ProcessingStep:
             self.metrics.batches += 1
             with timer.measure("decode"):
                 # probed items decode here, a whole bucket into one stacked
-                # array (pinned host memory when the step runs on a card)
+                # array (pinned host memory when the step runs on a card);
+                # device_decode (auto on a card, explicit True/False
+                # override — ops/jpeg.py:device_decode_enabled) moves
+                # IDCT/upsample/color onto the device, the host decoding
+                # entropy only and shipping sparse coefficients; a
+                # majority-dense run trips the sticky disable
+                dd = (not transform.needs_host_image(
+                          chunk, self.options, device)
+                      and djpeg.device_decode_enabled(
+                          self.options, transform, device))
+                dd_stats: dict = {}
                 fill_pending_images(
                     chunk, n_threads=self.workers,
-                    alloc=lambda shape: host_zeros(shape, device))
+                    alloc=lambda shape: host_zeros(shape, device),
+                    device_decode=dd, device=device, stats=dd_stats)
+                if dd and dd_stats.get("n"):
+                    djpeg.note_decode_dense(
+                        transform, dd_stats["dense"], dd_stats["n"])
             with timer.measure("device"):
                 out_dev = transform.launch_batch(
                     key, chunk, self.options, device=device)
                 # async device→host copy: it overlaps the next batch's
-                # compute
-                transform.start_host_copy(out_dev)
+                # compute (deferred to the saver when the transform
+                # shrinks its output on the device first)
+                if not transform.shrinks_output:
+                    transform.start_host_copy(out_dev)
             inflight.append(save_pool.submit(saver, chunk, n_valid, out_dev))
             while len(inflight) > max_inflight:
                 inflight.popleft().result()
@@ -789,6 +848,32 @@ def _engine_pool_cls(workers: int, device):
             and device.type == "cpu"):
         return _SyncExecutor
     return ThreadPoolExecutor
+
+
+def _leaves(tree, private: bool = False):
+    """The array leaves (tensors and numpy arrays/scalars) of an output
+    dict, its nested dicts, lists and tuples; top-level underscore keys
+    (zero-copy references a transform stashed for its shrink hook, and
+    the host copies) are skipped unless ``private``."""
+    if isinstance(tree, dict):
+        items = tree.items() if private else (
+            (k, v) for k, v in tree.items() if not str(k).startswith("_"))
+        for _, v in items:
+            yield from _leaves(v, True)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v, True)
+    elif hasattr(tree, "dtype"):
+        yield tree
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of the array leaves of ``tree`` (see _leaves)."""
+    total = 0
+    for x in _leaves(tree):
+        total += (x.numel() * x.element_size() if hasattr(x, "numel")
+                  else x.size * x.dtype.itemsize)
+    return total
 
 
 def _safe_load(load, args):

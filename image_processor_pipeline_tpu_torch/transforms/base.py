@@ -19,9 +19,12 @@ field as a tensor on the device.
 On a CUDA device a batch is stacked into pinned host memory and copied to
 the card without blocking, its outputs are copied back into pinned memory
 behind a CUDA event, and ``materialize_batch`` (typically called from a
-saver thread) waits on that event alone, never on the whole device.  The
-JAX class's ``native_fn`` / ``launch_batch_native`` and its sharded jit are
-not ported yet.
+saver thread) waits on that event alone, never on the whole device.  A
+transform that shrinks its output on the device first (``shrinks_output``,
+the coefficient transport of ops/jpeg.py) starts that copy from its
+``shrink_output`` hook instead, in the saver thread.  The JAX class's
+``native_fn`` / ``launch_batch_native`` and its sharded jit are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -50,13 +53,17 @@ def host_zeros(shape, device, dtype=np.uint8) -> np.ndarray:
 
 
 def to_device(array, device) -> torch.Tensor:
-    """``array`` (numpy or a CPU tensor) as a tensor on ``device``.  For a
+    """``array`` (numpy or a tensor) as a tensor on ``device``.  For a
     CUDA card a pageable array is first staged in pinned memory and the
     copy is asynchronous: a pageable copy would synchronise the stream."""
     t = array if isinstance(array, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(array))
     device = torch.device(device)
-    if device.type != "cuda":
+    if device.type != "cuda" or (
+            t.device.type == "cuda"
+            and device.index in (None, t.device.index)):
+        # a tensor already on the card (a batch the hybrid decode made
+        # there) stays where it is
         return t.to(device)
     if not t.is_pinned():
         pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -65,10 +72,35 @@ def to_device(array, device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def host_arrays(out_dev: Dict) -> Dict[str, np.ndarray]:
+    """The tensors of a dispatched batch's outputs as numpy arrays on the
+    host: starts their copies if ``start_host_copy`` has not, then waits on
+    the batch's own copy event."""
+    BatchTransform.start_host_copy(out_dev)
+    host, event = out_dev[_HOST_COPY]
+    if event is not None:
+        event.synchronize()
+    return {k: v.numpy() for k, v in host.items()}
+
+
 class BatchTransform:
     """Subclass and implement load_item / stack_batch / device_fn / save_item."""
 
     max_batch: int = 64
+
+    #: transforms whose save_item reads ``item["image"]`` (the decoded
+    #: input) must set this so the engine keeps decoding on the host —
+    #: the hybrid device-decode path never materializes per-item pixels
+    save_needs_image = False
+
+    def needs_host_image(self, chunk, options, device) -> bool:
+        """Per-bucket refinement of ``save_needs_image``: the engine asks
+        this before enabling the hybrid device decode for a chunk bound
+        for ``device``.  A transform whose save path can source the input
+        from the device for some buckets (symmetry's 'o' copy through the
+        coefficient transport on all-.jpg buckets) overrides this to
+        return False there."""
+        return self.save_needs_image
 
     # -- host: per-item decode -------------------------------------------
     def load_item(self, inputs: Tuple, options: Dict) -> Dict[str, Any]:
@@ -105,7 +137,8 @@ class BatchTransform:
         When the batch decoder already produced the whole chunk in one
         stacked array (io/images.py:fill_pending_images fast path, exposed
         as ``chunk[0]['_prestacked_image']``), the image field is passed
-        through without the np.stack copy.
+        through without the np.stack copy; after the hybrid device decode
+        that is a tensor already on ``device``, never copied back.
         """
         out = {}
         pre = chunk[0].get("_prestacked_image")
@@ -166,6 +199,17 @@ class BatchTransform:
                  for k, v in arrays.items()}
         return self.device_fn(batch, static)
 
+    #: transforms that override shrink_output set this so the engine defers
+    #: the device→host copy to the saver thread (the shrink must run first)
+    shrinks_output = False
+
+    def shrink_output(self, out_dev: Dict, chunk: List[Dict],
+                      options: Dict) -> Dict:
+        """Optional device-side output shrink before the device→host copy
+        (runs in the saver thread, where waiting on this batch is free —
+        the next batch is already queued).  Default: pass through."""
+        return out_dev
+
     @staticmethod
     def start_host_copy(out_dev: Dict) -> None:
         """Kick off the device→host copies of a dispatched batch, so they
@@ -196,11 +240,7 @@ class BatchTransform:
     def materialize_batch(out_dev: Dict, n: int) -> List[Dict]:
         """The first ``n`` items of a batch's outputs as dicts of numpy
         arrays; waits on the batch's own copy event."""
-        BatchTransform.start_host_copy(out_dev)
-        host, event = out_dev[_HOST_COPY]
-        if event is not None:
-            event.synchronize()
-        out_np = {k: v.numpy() for k, v in host.items()}
+        out_np = host_arrays(out_dev)
         return [{k: v[i] for k, v in out_np.items()} for i in range(n)]
 
     # helper for subclasses

@@ -63,6 +63,16 @@ class ChainSymmetries(FusedChain):
     is fixed at ``.png`` by the fused semantics and ignored here.
     """
 
+    def shrink_output(self, out_dev, chunk, options):
+        """Outputs are always ``.png`` (the symmetry half keeps the
+        lossless intermediate suffix) — run the inherited valid-region
+        shrink but never the ``.jpg`` coefficient transport, whose output
+        protocol this save_item doesn't speak, even if a direct user
+        passes ``output_suffix='.jpg'`` + ``device_encode``."""
+        opts = dict(options)
+        opts["output_suffix"] = ".png"
+        return FusedChain.shrink_output(self, out_dev, chunk, opts)
+
     def save_item(
         self,
         out: Dict[str, np.ndarray],

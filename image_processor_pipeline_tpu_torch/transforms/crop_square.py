@@ -18,8 +18,9 @@ Behavior parity with reference crop_square.py:104-224
 The placement draw and the bbox recalibration are O(B) scalars and run on
 the host (``_geom``); the crop (a roll by each item's own offsets, then a
 mask) runs on the device over the whole batch; the host decodes, stacks,
-and re-encodes.  The JAX class's ``native_fn`` and its device JPEG encode
-are not ported yet.
+and re-encodes.  On all-.jpg buckets with ``device_encode`` on, the JPEG
+front half runs on the device too and only sparse coefficients come back
+(``shrink_output``).  The JAX class's ``native_fn`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from image_processor_pipeline_tpu_torch.transforms.base import (
     BatchTransform,
     to_device,
 )
+from image_processor_pipeline_tpu_torch.ops import jpeg as djpeg
 from image_processor_pipeline_tpu_torch.ops import bbox as bbox_ops
 from image_processor_pipeline_tpu_torch.ops import geometry
 from image_processor_pipeline_tpu_torch.io.images import (
@@ -176,6 +178,47 @@ class SquareCropAroundBBox(BatchTransform):
             batch["seed"],
         )
 
+    # -- hybrid device JPEG encode (D2H ships coefficients, not pixels) ----
+    # Crops keep the input suffix and save at the cv2-anchored q95
+    # (reference crop_square.py saves via cv2.imwrite); on all-.jpg
+    # buckets the JPEG front half runs on the device and only sparse
+    # quantized coefficients come back.  Byte-identical to the pixel path.
+    shrinks_output = True
+
+    def shrink_output(self, out_dev, chunk, options):
+        if chunk and all(
+                Path(it["_args"][0]).suffix.lower() in (".jpg", ".jpeg")
+                for it in chunk):
+            if djpeg.device_encode_enabled(options, self,
+                                           out_dev["image"].device):
+                out = self._shrink_encode(
+                    out_dev, options,
+                    n_valid=len({id(it) for it in chunk}))
+                if out is not None:
+                    return out
+        self.start_host_copy(out_dev)
+        return out_dev
+
+    _GEO_KEYS = ("crop_size", "placement_ok", "valid", "classes", "xywhn")
+
+    def _shrink_encode(self, out_dev, options, n_valid):
+        img = out_dev["image"]
+        s_np = np.asarray(out_dev["crop_size"], np.int32)
+        s_dev = to_device(s_np, img.device)
+        out = djpeg.shrink_transport(
+            self, img, s_dev, s_dev, s_np, s_np, 95, options, n_valid)
+        if out is None:
+            return None
+        out.update({k: out_dev[k] for k in self._GEO_KEYS})
+        self.start_host_copy(out)
+        return out
+
+    def materialize_batch(self, out_dev, n: int):
+        if "jpeg_idx" not in out_dev:
+            return BatchTransform.materialize_batch(out_dev, n)
+        return djpeg.materialize_jpeg_batch(out_dev, n,
+                                            per_item_keys=self._GEO_KEYS)
+
     def save_item(
         self,
         out: Dict[str, np.ndarray],
@@ -197,6 +240,11 @@ class SquareCropAroundBBox(BatchTransform):
         xywhn = out["xywhn"][valid]
         img_out = Path(img_dir) / img_path.name
         lbl_out = Path(lbl_dir) / lbl_path.name
-        encode_image(out["image"][:s, :s], img_out)
+        if "jpeg_meta" in out:
+            # device_encode transport: entropy-encode the device-quantized
+            # sparse coefficients (bytes identical to the q95 pixel path)
+            djpeg.write_sparse_item(img_out, out, s, s)
+        else:
+            encode_image(out["image"][:s, :s], img_out)
         write_yolo_labels(lbl_out, classes, xywhn)
         return [img_out, lbl_out]

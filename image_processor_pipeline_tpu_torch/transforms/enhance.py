@@ -9,8 +9,10 @@ Behavior parity with reference tranfo.py:9-55 (enhance_image):
     per-LUT-entry redraw at tranfo.py:48-50 is a defect, SURVEY.md §2.7 #12)
   - output: same file name into output_dirs[0]
 
-The factors are drawn on the host in numpy (``draw_factors``); the JAX
-class's native C++ twin and its device JPEG encode are not ported yet.
+The factors are drawn on the host in numpy (``draw_factors``).  On
+all-.jpg buckets with ``device_encode`` on, the JPEG front half runs on the
+device and only sparse coefficients come back (``shrink_output``).  The JAX
+class's native C++ twin is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from image_processor_pipeline_tpu_torch.transforms.base import (
     BatchTransform,
     to_device,
 )
+from image_processor_pipeline_tpu_torch.ops import jpeg as djpeg
 from image_processor_pipeline_tpu_torch.ops import photometric
 from image_processor_pipeline_tpu_torch.io.images import (
     decode_padded,
@@ -93,6 +96,45 @@ class EnhanceImage(BatchTransform):
             blur_max_radius=photometric.box_radius_bound(3.0),
             blur_sigma_max=3.0)}  # sigma is drawn in [0.5, 3.0]
 
+    # -- hybrid device JPEG encode (D2H ships coefficients, not pixels) ----
+    # Enhance writes <input name> at the PIL-anchored q75; with
+    # device_encode on and an all-.jpg bucket the JPEG front half runs on
+    # the device (ops/jpeg.py:encode_shrink) and only sparse quantized
+    # coefficients come back.  Byte-identical to the pixel path.
+    shrinks_output = True
+
+    def shrink_output(self, out_dev, chunk, options):
+        if djpeg.device_encode_enabled(
+                options, self, out_dev["image"].device) and chunk and all(
+                Path(it["_args"][0]).suffix.lower() in (".jpg", ".jpeg")
+                for it in chunk):
+            out = self._shrink_encode(out_dev, chunk, options)
+            if out is not None:
+                return out
+        self.start_host_copy(out_dev)
+        return out_dev
+
+    def _shrink_encode(self, out_dev, chunk, options):
+        img = out_dev["image"]
+        sizes = np.stack([np.asarray(it["size"]) for it in chunk])
+        h_np = sizes[:, 0].astype(np.int32)
+        w_np = sizes[:, 1].astype(np.int32)
+        # hysteresis counts only the chunk's real items (pad rows are
+        # duplicates and would skew the dense ratio)
+        out = djpeg.shrink_transport(
+            self, img, to_device(h_np, img.device),
+            to_device(w_np, img.device), h_np, w_np,
+            75,  # PIL q75 (tranfo.py:53)
+            options, len({id(it) for it in chunk}))
+        if out is not None:
+            self.start_host_copy(out)
+        return out
+
+    def materialize_batch(self, out_dev, n: int):
+        if "jpeg_idx" not in out_dev:
+            return BatchTransform.materialize_batch(out_dev, n)
+        return djpeg.materialize_jpeg_batch(out_dev, n)
+
     def save_item(
         self,
         out: Dict[str, np.ndarray],
@@ -104,6 +146,9 @@ class EnhanceImage(BatchTransform):
         path = Path(item["_args"][0])
         h, w = (int(x) for x in item["size"])
         p = Path(target) / path.name
+        if "jpeg_meta" in out:
+            djpeg.write_sparse_item(p, out, h, w)
+            return p
         # reference tranfo.py:53 saves via PIL -> JPEG quality 75
         encode_image_pil(out["image"][:h, :w], p)
         return p

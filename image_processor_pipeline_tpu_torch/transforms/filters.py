@@ -34,6 +34,9 @@ from image_processor_pipeline_tpu_torch.utils.utils import validate_dirs
 
 class ColorMaskTransparency(BatchTransform):
     max_batch = 32
+    # save_item reads the decoded input (its RGB under the new alpha), so
+    # the hybrid device decode stays off
+    save_needs_image = True
 
     @staticmethod
     def _require_ranges(options: Dict) -> None:

@@ -22,9 +22,12 @@ on tensors [B, H, W, 4] with extents h, w [B] on one device.
 ``Rotate(method="shear")`` rotates the batch's canvases in one
 ``ops/rotate.py:rotate_square_shear_batch`` call: on a CUDA card one launch
 of the hand-written kernel of ``csrc/shear_rotate.cu`` (or it raises), on
-the CPU its plain twin.  The JAX class's native C++ executor
-(``native_program``, ``chain_native_exec``, ``native_fn``) and its shrunk
-and JPEG-coefficient transports are not ported yet.
+the CPU its plain twin.  ``FusedChain.shrink_output`` fetches only the
+batch's valid region (and no alpha for .jpg outputs), or with
+``device_encode`` on and a .jpg ``output_suffix`` runs the JPEG front half
+on the device and fetches sparse coefficients.  The JAX class's native C++
+executor (``native_program``, ``chain_native_exec``, ``native_fn``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from image_processor_pipeline_tpu_torch.transforms.rotations import host_shifts
 from image_processor_pipeline_tpu_torch.ops import ccl as ccl_ops
 from image_processor_pipeline_tpu_torch.ops import color as color_ops
 from image_processor_pipeline_tpu_torch.ops import geometry, photometric
+from image_processor_pipeline_tpu_torch.ops import jpeg as djpeg
 from image_processor_pipeline_tpu_torch.ops import rotate as rotate_ops
 from image_processor_pipeline_tpu_torch.io.images import (
     decode_padded,
@@ -344,6 +348,68 @@ class FusedChain(BatchTransform):
             img, h, w = stage.apply(img, h, w, draws)
         return {"image": img, "h": h, "w": w}
 
+    # -- D2H shrink (device path) -------------------------------------------
+    # The full canvas is often much larger than the content (the diag
+    # canvas after rotate + fitcrop), and .jpg outputs never read the alpha
+    # plane: fetching only the batch's valid region (rounded up to a 128
+    # multiple) and dropping alpha for .jpg cuts the device→host bytes.
+    shrinks_output = True
+
+    def shrink_output(self, out_dev, chunk, options):
+        img = out_dev["image"]
+        H, W = int(img.shape[1]), int(img.shape[2])
+        # small wait on this batch's own extents (saver-thread context)
+        h, w = djpeg.fetch([out_dev["h"], out_dev["w"]])
+        hm = min(H, int(-(-max(int(h.max()), 1) // 128) * 128))
+        wm = min(W, int(-(-max(int(w.max()), 1) // 128) * 128))
+        suffix = str(options.get("output_suffix", ".png")).lower()
+        if suffix in (".jpg", ".jpeg") and djpeg.device_encode_enabled(
+                options, self, img.device):
+            out = self._shrink_encode(
+                out_dev, h, w, options,
+                n_valid=len({id(it) for it in chunk}))
+            if out is not None:
+                return out
+        C = (3 if suffix in (".jpg", ".jpeg")
+             or options.get("output_bands") == 3 else img.shape[3])
+        if (hm, wm, C) == (H, W, img.shape[3]):
+            self.start_host_copy(out_dev)
+            return out_dev
+        out = dict(out_dev, image=img[:, :hm, :wm, :C])
+        self.start_host_copy(out)
+        return out
+
+    # -- hybrid device JPEG encode (D2H ships coefficients, not pixels) -----
+    # With device_encode on and a .jpg output_suffix the whole JPEG front
+    # half (YCbCr, 4:2:0 downsample, islow FDCT, quantization —
+    # ops/jpeg.py:encode_start_sparse) runs on the device and sparse
+    # quantized coefficients come back; the saver thread does entropy
+    # encode only (native/ipp_io.cpp:ipp_write_jpeg_coefs_sparse).  Files
+    # are byte-identical to the pixel path at the final stage's anchored
+    # quality.
+
+    def _shrink_encode(self, out_dev, h, w, options, n_valid=None):
+        # same anchor condition as save_item below: cv2 q95 only when a
+        # non-PIL-anchored final stage exists (empty chains save via PIL)
+        quality = 95 if (self.stages
+                         and not self.stages[-1].pil_anchored) else 75
+        # hysteresis counts only the chunk's real items: ladder pad rows
+        # are duplicates and would skew the dense ratio
+        out = djpeg.shrink_transport(
+            self, out_dev["image"], out_dev["h"], out_dev["w"], h, w,
+            quality, options, len(h) if n_valid is None else n_valid)
+        if out is None:
+            return None
+        out.update(h=out_dev["h"], w=out_dev["w"])
+        self.start_host_copy(out)
+        return out
+
+    def materialize_batch(self, out_dev, n: int):
+        if "jpeg_idx" not in out_dev:
+            return BatchTransform.materialize_batch(out_dev, n)
+        return djpeg.materialize_jpeg_batch(out_dev, n,
+                                            per_item_keys=("h", "w"))
+
     def save_item(self, out, item, output_dirs, options) -> Optional[Path]:
         target = validate_dirs(output_dirs, 1)
         path = Path(item["_args"][0])
@@ -352,6 +418,11 @@ class FusedChain(BatchTransform):
             raise RuntimeError(f"chain produced empty content for {path.name}")
         suffix = options.get("output_suffix", ".png")
         p = Path(target) / f"{path.stem}{suffix}"
+        if "jpeg_meta" in out:
+            # device_encode transport: entropy-encode the device-quantized
+            # sparse coefficients (bytes identical to the pixel path)
+            djpeg.write_sparse_item(p, out, h, w)
+            return p
         img = out["image"][:h, :w]
         if suffix.lower() in (".jpg", ".jpeg"):
             img = img[..., :3]

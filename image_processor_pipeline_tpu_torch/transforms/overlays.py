@@ -22,9 +22,11 @@ jitted JAX ``_draw_geometry``'s float32 values, sizes, positions and
 labels); the pixels are computed on the step's device: premultiply,
 Pillow's fixed-point LANCZOS resize (``geometry.resize``), unpremultiply,
 Paste.c's blend (``compose.alpha_paste``).  That is the Pillow composite
-byte for byte, as the JAX package's native twin computes it.  The JAX
-class's ``native_fn`` and its device JPEG transport (``shrink_output``)
-are not ported yet.
+byte for byte, as the JAX package's native twin computes it.  When every
+background in a bucket is .jpg and ``device_encode`` is on, the JPEG front
+half of the composites runs on the device and only sparse coefficients
+come back (``shrink_output``).  The JAX class's ``native_fn`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from image_processor_pipeline_tpu_torch.transforms.base import (
     to_device,
 )
 from image_processor_pipeline_tpu_torch.ops import compose, geometry
+from image_processor_pipeline_tpu_torch.ops import jpeg as djpeg
 from image_processor_pipeline_tpu_torch.io.images import (
     decode_padded,
     encode_image_pil,
@@ -194,6 +197,49 @@ class PasteOverlayOntoBackground(BatchTransform):
             "new_size": torch.from_numpy(np.stack([new_h, new_w], axis=1)),
         }
 
+    # -- hybrid device JPEG encode (D2H ships coefficients, not pixels) ----
+    # Composites are background-sized (the step's largest payload); when
+    # every background in the bucket is .jpg the JPEG front half runs on
+    # the device at the PIL-anchored q75 (ops/jpeg.py:encode_shrink) and
+    # only sparse quantized coefficients come back.  Byte-identical to the
+    # pixel path.
+    shrinks_output = True
+
+    def shrink_output(self, out_dev, chunk, options):
+        if chunk and all(
+                Path(it["_args"][1]).suffix.lower() in (".jpg", ".jpeg")
+                for it in chunk) and djpeg.device_encode_enabled(
+                    options, self, out_dev["image"].device):
+            out = self._shrink_encode(
+                out_dev, chunk, options,
+                n_valid=len({id(it) for it in chunk}))
+            if out is not None:
+                return out
+        self.start_host_copy(out_dev)
+        return out_dev
+
+    def _shrink_encode(self, out_dev, chunk, options, n_valid):
+        img = out_dev["image"]
+        sizes = np.stack([np.asarray(it["bg_size"]) for it in chunk])
+        h_np = sizes[:, 0].astype(np.int32)
+        w_np = sizes[:, 1].astype(np.int32)
+        out = djpeg.shrink_transport(
+            self, img, to_device(h_np, img.device),
+            to_device(w_np, img.device), h_np, w_np,
+            75,  # PIL q75 (reference overlays.py:169)
+            options, n_valid)
+        if out is None:
+            return None
+        out.update(xywhn=out_dev["xywhn"], ok=out_dev["ok"])
+        self.start_host_copy(out)
+        return out
+
+    def materialize_batch(self, out_dev, n: int):
+        if "jpeg_idx" not in out_dev:
+            return BatchTransform.materialize_batch(out_dev, n)
+        return djpeg.materialize_jpeg_batch(out_dev, n,
+                                            per_item_keys=("xywhn", "ok"))
+
     def save_item(
         self,
         out: Dict[str, np.ndarray],
@@ -216,8 +262,13 @@ class PasteOverlayOntoBackground(BatchTransform):
         lbl_out = Path(lbl_dir) / f"{ov_path.stem}.txt"
         saved: List[Path] = []
         try:
-            # reference overlays.py:169 saves via PIL -> JPEG q75
-            encode_image_pil(out["image"][:bh, :bw], img_out)
+            if "jpeg_meta" in out:
+                # device_encode transport: entropy-encode the device-
+                # quantized sparse coefficients (bytes identical)
+                djpeg.write_sparse_item(img_out, out, bh, bw)
+            else:
+                # reference overlays.py:169 saves via PIL -> JPEG q75
+                encode_image_pil(out["image"][:bh, :bw], img_out)
             saved.append(img_out)
             lbl_out.write_text(label_line)
             saved.append(lbl_out)

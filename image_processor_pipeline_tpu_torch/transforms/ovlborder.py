@@ -49,6 +49,14 @@ class OverlaysBorderCrop(PasteOverlayOntoBackground):
     ``{overlay_stem}{background_suffix}``; the label is the overlays
     stage's line."""
 
+    def shrink_output(self, out_dev, chunk, options):
+        """The inherited hybrid JPEG shrink encodes the UNCROPPED
+        composite at the overlays anchor (PIL q75) — wrong on both counts
+        for the fused step (cropped content, cv2 q95), so the transport
+        is always the pixel fetch here."""
+        self.start_host_copy(out_dev)
+        return out_dev
+
     def save_item(
         self,
         out: Dict[str, np.ndarray],

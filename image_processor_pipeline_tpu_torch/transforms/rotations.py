@@ -23,9 +23,10 @@ which on a CUDA card launches the hand-written kernel of
 drawn on the host, and the shear method's shift vectors are computed there
 too (``host_shifts``), so that a run on the card and a run on the CPU write
 the same files: the card's float32 tan and sin differ from the CPU's by
-ulps.
-The JAX class's PIL-exact ``native_fn`` and its device JPEG encode are not
-ported yet.
+ulps.  With ``output_format="jpeg"`` and ``device_encode`` on, the JPEG
+front half of every rotation runs on the device and only sparse
+coefficients come back (``shrink_output``).
+The JAX class's PIL-exact ``native_fn`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,9 +40,11 @@ import torch
 from image_processor_pipeline_tpu_torch import random as jrandom
 from image_processor_pipeline_tpu_torch.transforms.base import (
     BatchTransform,
+    host_arrays,
     to_device,
 )
 from image_processor_pipeline_tpu_torch.ops import geometry
+from image_processor_pipeline_tpu_torch.ops import jpeg as djpeg
 from image_processor_pipeline_tpu_torch.ops import rotate as rotate_ops
 from image_processor_pipeline_tpu_torch.io.images import (
     decode_padded,
@@ -113,6 +116,11 @@ def _rotate(img, h, w, angles, method: str,
 class RandomRotations(BatchTransform):
     max_batch = 8  # N rotations per item amplify the per-item footprint
 
+    # save_item re-encodes the decoded input as the `include_original`
+    # copy (reference rotations.py:77-82), so the engine must keep host
+    # pixel decoding on (device_decode would leave item["image"] unset)
+    save_needs_image = True
+
     def load_item(self, inputs: Tuple, options: Dict) -> Dict[str, Any]:
         path = Path(inputs[0])
         buf, h, w, canvas = decode_padded(path, mode="RGBA", diag=True)
@@ -154,6 +162,70 @@ class RandomRotations(BatchTransform):
                        to_device(angles, img.device), method, interpolation,
                        shifts=shifts)
 
+    # -- hybrid device JPEG encode (D2H ships coefficients, not pixels) ----
+    # The rotations step has the engine's largest D2H payload (R canvases
+    # per input); with output_format='jpeg' and device_encode on, the JPEG
+    # front half runs on the device (ops/jpeg.py:encode_shrink at the
+    # PIL-anchored q75) over the B x R rows flattened, sparse quantized
+    # coefficients come back, and save_item entropy-encodes only.
+    # Byte-identical to the pixel path.
+    shrinks_output = True
+
+    def shrink_output(self, out_dev, chunk, options):
+        fmt = str(options.get("output_format", "png")).lower()
+        if fmt in ("jpeg", "jpg") and djpeg.device_encode_enabled(
+                options, self, out_dev["images"].device):
+            out = self._shrink_encode(
+                out_dev, options, n_valid=len({id(it) for it in chunk}))
+            if out is not None:
+                return out
+        self.start_host_copy(out_dev)
+        return out_dev
+
+    def _shrink_encode(self, out_dev, options, n_valid=None):
+        imgs = out_dev["images"]
+        B, R = int(imgs.shape[0]), int(imgs.shape[1])
+        flat = imgs.reshape((B * R,) + tuple(imgs.shape[2:]))
+        h_dev = out_dev["heights"].reshape(B * R).to(torch.int32)
+        w_dev = out_dev["widths"].reshape(B * R).to(torch.int32)
+        # small wait on this batch's own sizes (saver-thread context)
+        h_np, w_np = djpeg.fetch([h_dev, w_dev])
+        # hysteresis counts only the chunk's real items' rows (pad items
+        # duplicate the tail and would skew the dense ratio); each item
+        # contributes R flattened rows
+        out = djpeg.shrink_transport(
+            self, flat, h_dev, w_dev, h_np, w_np,
+            75,  # PIL q75 (rotations.py:119)
+            options, B * R if n_valid is None else n_valid * R)
+        if out is None:
+            return None
+        out.update(jpeg_R=R, heights=h_np.reshape(B, R),
+                   widths=w_np.reshape(B, R))
+        self.start_host_copy(out)
+        return out
+
+    def materialize_batch(self, out_dev, n: int):
+        if "jpeg_idx" not in out_dev:
+            return BatchTransform.materialize_batch(out_dev, n)
+        R = out_dev["jpeg_R"]
+        pixels = out_dev["jpeg_pixels"]
+        fetch = host_arrays(out_dev)
+        items = []
+        for i in range(n):
+            lo = i * R
+            items.append({
+                "jpeg_idx": fetch["jpeg_idx"][lo:lo + R],
+                "jpeg_val": fetch["jpeg_val"][lo:lo + R],
+                "jpeg_nnz": out_dev["jpeg_nnz"][lo:lo + R],
+                "jpeg_meta": out_dev["jpeg_meta"],
+                "jpeg_pixels": {
+                    j - lo: px for j, px in pixels.items()
+                    if lo <= j < lo + R},
+                "heights": out_dev["heights"][i],
+                "widths": out_dev["widths"][i],
+            })
+        return items
+
     def save_item(
         self,
         out: Dict[str, np.ndarray],
@@ -187,6 +259,7 @@ class RandomRotations(BatchTransform):
             except Exception as e:  # noqa: BLE001 — continue past original
                 print(f"[rotations] failed to save original {p.name}: {e}")
 
+        jpeg_mode = "jpeg_meta" in out
         n = out["heights"].shape[0]
         for i in range(n):
             bh, bw = int(out["heights"][i]), int(out["widths"][i])
@@ -197,7 +270,19 @@ class RandomRotations(BatchTransform):
             key = key_format.format(prefix=output_prefix, index=i + 1)
             p = target / f"{stem}_{key}{suffix}"
             try:
-                encode_image_pil(out["images"][i][:bh, :bw], p)
+                if jpeg_mode and i not in out["jpeg_pixels"]:
+                    # device_encode transport: entropy-encode the device-
+                    # quantized sparse coefficients (bytes identical)
+                    djpeg.write_sparse_item(p, {
+                        "jpeg_idx": out["jpeg_idx"][i],
+                        "jpeg_val": out["jpeg_val"][i],
+                        "jpeg_nnz": out["jpeg_nnz"][i],
+                        "jpeg_meta": out["jpeg_meta"],
+                    }, bh, bw)
+                else:
+                    img = (out["jpeg_pixels"][i] if jpeg_mode
+                           else out["images"][i])[:bh, :bw]
+                    encode_image_pil(img, p)
                 saved.append(p)
             except Exception as e:  # noqa: BLE001 — per-rotation tolerance
                 print(f"[rotations] failed rotation {i + 1} of {path.name}: {e}")

@@ -110,6 +110,9 @@ class RotationsChain(RandomRotations):
     """
 
     max_batch = 8
+    # the original slot is tail-processed on the device; save never
+    # touches item["image"], so the hybrid device decode stays available
+    save_needs_image = False
 
     def __init__(self, stages: Sequence):
         self.stages = list(stages)
@@ -168,6 +171,13 @@ class RotationsChain(RandomRotations):
             yield slot, (original_key if slot == 0
                          else key_format.format(prefix=output_prefix,
                                                 index=slot))
+
+    def shrink_output(self, out_dev, chunk, options):
+        """Outputs are always ``.png``, so the inherited ``.jpg``
+        coefficient-transport shrink (whose output protocol this
+        save_item doesn't speak) must never run."""
+        self.start_host_copy(out_dev)
+        return out_dev
 
     def save_item(
         self,

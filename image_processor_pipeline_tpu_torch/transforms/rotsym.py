@@ -145,6 +145,15 @@ class RotationsSymmetries(RandomRotations):
     symmetry step gives the standalone rotation output.
     """
 
+    def shrink_output(self, out_dev, chunk, options):
+        """Outputs are always ``.png`` (the symmetry half keeps the
+        lossless intermediate suffix), so the inherited ``.jpg``
+        coefficient-transport shrink — whose output protocol this
+        save_item doesn't speak — must never run, even if a direct user
+        passes ``output_format='jpeg'``."""
+        self.start_host_copy(out_dev)
+        return out_dev
+
     def save_item(
         self,
         out: Dict[str, np.ndarray],

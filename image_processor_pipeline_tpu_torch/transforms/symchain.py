@@ -130,6 +130,13 @@ class SymmetriesChain(FusedChain):
             self.keys_from_seeds(batch["seed"]))
         return {"images": images, "heights": heights, "widths": widths}
 
+    def shrink_output(self, out_dev, chunk, options):
+        """Multi-slot output ([B, S, H, W, 4]) — the inherited 1→1
+        valid-region shrink and the ``.jpg`` coefficient transport don't
+        apply (outputs are always ``.png``)."""
+        self.start_host_copy(out_dev)
+        return out_dev
+
     def save_item(
         self,
         out: Dict[str, np.ndarray],

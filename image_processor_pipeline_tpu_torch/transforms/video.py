@@ -11,7 +11,7 @@ Behavior parity with reference video.py:6-48 (frame_extraction):
 Decoding is cv2.VideoCapture (FFmpeg) when cv2 is installed, else
 imageio; either way a host step (``ProcessingStep``'s ``_run_host``) whose
 frames feed the batched device steps downstream.  Frames are encoded with
-``io/images.encode_image`` (Pillow, q95).
+``io/images.encode_image`` (the native encoder, else Pillow; q95).
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 image_processor_pipeline_tpu/utils/profiling.py:23-75).
 
   - StageMetrics: structured per-stage wall-clock, item counts, items/sec
-    and the host/device time split, attached to every ProcessingStep run
-    and included in the JSON run report.
+    and the host/device time split and the device→host bytes of
+    transforms that shrink their output, attached to every ProcessingStep
+    run and included in the JSON run report.
   - Timer: scoped wall-clock accumulator.
 
 ``device_trace`` and ``enable_compilation_cache`` of the JAX module are not
@@ -29,6 +30,10 @@ class StageMetrics:
     batches: int = 0
     compiles: int = 0
     output_collisions: int = 0
+    #: device→host bytes: full-output size vs actually fetched after the
+    #: shrink_output hook (0/0 when the transform doesn't shrink)
+    d2h_bytes_full: int = 0
+    d2h_bytes_fetched: int = 0
 
     @property
     def items_per_second(self) -> float:
@@ -45,6 +50,8 @@ class StageMetrics:
             "host_save_seconds": round(self.host_save_seconds, 4),
             "batches": self.batches,
             "output_collisions": self.output_collisions,
+            "d2h_bytes_full": self.d2h_bytes_full,
+            "d2h_bytes_fetched": self.d2h_bytes_fetched,
         }
 
 

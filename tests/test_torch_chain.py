@@ -52,6 +52,9 @@ PORT_MODULES = (
     "image_processor_pipeline_tpu_torch.transforms.rotsym",
     "image_processor_pipeline_tpu_torch.transforms.rotchain",
     "image_processor_pipeline_tpu_torch.transforms.crop_dummy",
+    "image_processor_pipeline_tpu_torch.ops.jpeg",
+    "image_processor_pipeline_tpu_torch.io.native",
+    "image_processor_pipeline_tpu_torch.io.images",
 )
 
 

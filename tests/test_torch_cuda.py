@@ -998,3 +998,244 @@ def test_auto_fuse_on_card_writes_the_cpu_files(cuda_device, direct_tiles,
     out = tmp_path / "cuda" / "out"
     _assert_same_dirs(out, tmp_path / "cpu" / "out",
                       len(list(out.iterdir())))
+
+
+# -- the codec's device halves (ops/jpeg.py) --------------------------------
+
+def _coefs(rng, B, cap_h, cap_w, lo=-2048, hi=2048, samp=(2, 2)):
+    cy = rng.integers(lo, hi, (B, cap_h // 8, cap_w // 8, 64)).astype(
+        np.int16)
+    cc = rng.integers(lo, hi, (B, 2, cap_h // (8 * samp[1]),
+                               cap_w // (8 * samp[0]), 64)).astype(np.int16)
+    qt = rng.integers(1, 256, (B, 3, 64)).astype(np.int32)
+    return cy, cc, qt
+
+
+def _on(dev, *arrays):
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+@pytest.mark.cuda
+def test_jpeg_block_transforms_on_card_match_the_cpu(cuda_device):
+    """The IDCT and the FDCT on crafted extreme blocks (int32 wrap-around,
+    the range limit's `& 1023`, truncating division) and every quantiser."""
+    from image_processor_pipeline_tpu_torch.ops import jpeg
+
+    rng = np.random.default_rng(0)
+    coefs = np.concatenate([
+        np.full((255, 1, 2, 64), 2047, np.int16),
+        np.full((255, 1, 2, 64), -2048, np.int16),
+        rng.integers(-32768, 32768, (255, 1, 2, 64)).astype(np.int16)])
+    qtab = np.tile(np.repeat(np.arange(1, 256, dtype=np.int32)[:, None], 64,
+                             1), (3, 1))
+    planes = np.concatenate([
+        rng.integers(0, 256, (255, 8, 16)),
+        rng.integers(-2 ** 31, 2 ** 31 - 1, (510, 8, 16))]).astype(np.int32)
+    for fn, args in ((jpeg.idct_islow_blocks, (coefs, qtab)),
+                     (jpeg.fdct_quant_blocks, (planes, qtab))):
+        got = fn(*_on(cuda_device, *args))
+        assert torch.equal(got.cpu(), fn(*_on("cpu", *args))), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samp,gray,channels", [
+    ((1, 1), False, 3), ((2, 1), False, 3), ((1, 2), False, 3),
+    ((2, 2), False, 3), ((1, 1), True, 3), ((2, 2), False, 4)])
+def test_jpeg_decode_finish_on_card_matches_the_cpu(cuda_device, samp, gray,
+                                                    channels):
+    """decode_finish at every sampling, grayscale and 4 channels, odd valid
+    sizes; and decode_finish_sparse (an int32 scatter-add on the card)."""
+    from image_processor_pipeline_tpu_torch.ops import jpeg
+
+    rng = np.random.default_rng(sum(samp) + channels)
+    cap_h, cap_w, B = 48, 64, 3
+    cy, cc, qt = _coefs(rng, B, cap_h, cap_w, -200, 200, samp=(1, 1))
+    h = np.array([48, 47, 17], np.int32)
+    w = np.array([64, 45, 9], np.int32)
+    kw = dict(samp=samp, cap_h=cap_h, cap_w=cap_w, grayscale=gray,
+              channels=channels)
+    want = jpeg.decode_finish(*_on("cpu", cy, cc, qt, h, w), **kw)
+    got = jpeg.decode_finish(*_on(cuda_device, cy, cc, qt, h, w), **kw)
+    assert torch.equal(got.cpu(), want)
+    flat = np.concatenate([cy.reshape(B, -1), cc.reshape(B, -1)], 1)
+    flat[:, 1::3] = 0
+    idx = np.zeros(flat.shape, np.int32)
+    val = np.zeros(flat.shape, np.int16)
+    for i in range(B):
+        nz = np.nonzero(flat[i])[0]
+        idx[i, :len(nz)], val[i, :len(nz)] = nz, flat[i, nz]
+    kw.update(cap_by_c=cap_h // 8, cap_bx_c=cap_w // 8)
+    want = jpeg.decode_finish_sparse(*_on("cpu", idx, val, qt, h, w), **kw)
+    got = jpeg.decode_finish_sparse(*_on(cuda_device, idx, val, qt, h, w),
+                                    **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_jpeg_encode_start_and_shrink_on_card_match_the_cpu(cuda_device):
+    """encode_start, encode_start_sparse (its scatter into the dump column
+    included: an item overflows the cap), encode_shrink's slices, host nnz
+    and overflow pixels, and the round trip through decode_finish_sparse."""
+    from image_processor_pipeline_tpu_torch.ops import jpeg
+    from torch_port_data import make_image
+
+    rng = np.random.default_rng(5)
+    B, H, W = 4, 208, 144
+    imgs = np.stack([make_image(rng, H, W, 4) for _ in range(B)])
+    imgs[2] = rng.integers(0, 256, imgs[2].shape)
+    h = np.array([208, 150, 199, 7], np.int32)
+    w = np.array([144, 101, 130, 133], np.int32)
+    for i in range(B):
+        imgs[i, h[i]:] = 0
+        imgs[i, :, w[i]:] = 0
+    qt = jpeg.quality_qtabs(95).astype(np.int32)
+    kw = dict(cap_h=H, cap_w=W)
+    for a, b in zip(jpeg.encode_start(*_on(cuda_device, imgs, h, w, qt), **kw),
+                    jpeg.encode_start(*_on("cpu", imgs, h, w, qt), **kw)):
+        assert torch.equal(a.cpu(), b)
+    sparse = {}
+    for label, dev in (("card", cuda_device), ("cpu", "cpu")):
+        sparse[label] = jpeg.encode_start_sparse(
+            *_on(dev, imgs, h, w, qt), cap_nnz=4000, **kw)
+    for a, b in zip(sparse["card"], sparse["cpu"]):
+        assert torch.equal(a.cpu(), b)
+    assert int(sparse["cpu"][2][2]) > 4000
+    idx, val, _ = sparse["card"]
+    back = {label: jpeg.decode_finish_sparse(
+        *_on(dev, idx.cpu()[[0, 1, 3]], val.cpu()[[0, 1, 3]],
+             np.repeat(qt[None], 3, 0), h[[0, 1, 3]], w[[0, 1, 3]]),
+        samp=(2, 2), cap_h=H, cap_w=W, cap_by_c=H // 16, cap_bx_c=W // 16)
+        for label, dev in (("card", cuda_device), ("cpu", "cpu"))}
+    assert torch.equal(back["card"].cpu(), back["cpu"])
+    shrunk = {label: jpeg.encode_shrink(
+        *_on(dev, imgs, h, w), h, w, 95, cap_frac=0.2)
+        for label, dev in (("card", cuda_device), ("cpu", "cpu"))}
+    got, want = shrunk["card"], shrunk["cpu"]
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert got[3] == want[3] and sorted(got[4]) == sorted(want[4])
+    assert 2 in got[4]
+    for i in want[4]:
+        np.testing.assert_array_equal(got[4][i], want[4][i])
+
+
+def _one_batch(transform, inputs, options, seed, device):
+    chunk = [transform.load_item(args, options) for args in inputs]
+    for i, item in enumerate(chunk):
+        item["_seed"] = (seed + i) & 0x7FFFFFFF
+    key = transform.bucket_key(chunk[0], options)
+    return chunk, transform.launch_batch(key, chunk, options, device)
+
+
+@pytest.mark.cuda
+def test_pipeline_j_batches_shrink_on_card_as_on_the_cpu(cuda_device,
+                                                         tmp_path):
+    """One batch of each step of pipeline J (crop_square, rotations by
+    shear with output_format="jpeg", symmetry) with device_encode on: the
+    coefficients the card's JPEG front half leaves to fetch equal the
+    CPU's.  The library's entropy coder is not needed for this half."""
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch.ops import jpeg
+    from image_processor_pipeline_tpu_torch.transforms import (
+        GenerateSymmetries, RandomRotations, SquareCropAroundBBox)
+
+    imgs, labels = _engine_dataset(tmp_path, n=4)
+    jpgs = []
+    for p in sorted(imgs.iterdir()):
+        jpgs.append(tmp_path / f"{p.stem}.jpg")
+        Image.open(p).convert("RGB").save(jpgs[-1], quality=90)
+    crop_in = [(p, labels / f"{p.stem}.txt") for p in jpgs[2:3]]
+    rot_in = [(p,) for p in jpgs[:1]]
+    sym_in = [(p,) for p in jpgs[:1]]
+    rot_opts = {"method": "shear", "num_rotations": 4,
+                "output_format": "jpeg"}
+    shrunk = {}
+    for label, dev in (("card", cuda_device), ("cpu", "cpu")):
+        kernels.reset_launch_counts()
+        _, crop = _one_batch(SquareCropAroundBBox(), crop_in, {}, 3, dev)
+        s = np.asarray(crop["crop_size"], np.int32)
+        _, rot = _one_batch(RandomRotations(), rot_in, rot_opts, 4, dev)
+        B, R = rot["images"].shape[:2]
+        rh = rot["heights"].reshape(-1).to(torch.int32)
+        rw = rot["widths"].reshape(-1).to(torch.int32)
+        sym_t = GenerateSymmetries()
+        chunk, sym = _one_batch(sym_t, sym_in, {}, 5, dev)
+        sh = np.asarray([it["size"][0] for it in chunk], np.int32)
+        sw = np.asarray([it["size"][1] for it in chunk], np.int32)
+        shrunk[label] = [
+            jpeg.encode_shrink(crop["image"], *_on(dev, s, s), s, s, 95),
+            jpeg.encode_shrink(
+                rot["images"].reshape((B * R,) + rot["images"].shape[2:]),
+                rh, rw, rh.cpu().numpy(), rw.cpu().numpy(), 75),
+            jpeg.encode_shrink(sym["_input_dev"], *_on(dev, sh, sw), sh, sw,
+                               95)]
+        if torch.device(dev).type == "cuda":
+            assert kernels.launch_counts["shear_rotate_packed"] == 1
+    for got, want in zip(shrunk["card"], shrunk["cpu"]):
+        assert got is not None and want is not None
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+        assert got[3] == want[3] and not got[4] and not want[4]
+
+
+@pytest.mark.cuda
+def test_pipeline_j_with_transports_on_card_writes_the_cpu_files(
+        cuda_device, tmp_path):
+    """Pipeline J over JPEGs with the transports left on "auto" on the card
+    (on, where the native IO engine is built) and forced on on the CPU:
+    the same files, byte for byte, and the coefficients crossed the link.
+    Where the engine cannot be built "auto" is the host codec and the
+    same files must come out."""
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch import ProcessingStep
+    from image_processor_pipeline_tpu_torch.io import native
+    from image_processor_pipeline_tpu_torch.transforms import (
+        GenerateSymmetries, RandomRotations, SquareCropAroundBBox)
+
+    imgs, labels = _engine_dataset(tmp_path)
+    (tmp_path / "jpg").mkdir()
+    for p in sorted(imgs.iterdir()):
+        Image.open(p).convert("RGB").save(tmp_path / "jpg" / f"{p.stem}.jpg",
+                                          quality=90)
+    (tmp_path / "lab").mkdir()
+    for p in sorted(labels.iterdir()):
+        (tmp_path / "lab" / p.name).write_text(p.read_text())
+    steps = {}
+    for label, device, codec in (("card", cuda_device, {}), ("cpu", "cpu", {
+            "device_decode": native.available(),
+            "device_encode": native.available()})):
+        root = tmp_path / label
+        steps[label] = [ProcessingStep(
+            name, transform, input_dirs=ins, output_dirs=outs, seed=seed,
+            workers=2, device=device, options=dict(codec, **options),
+            pairing_method=pairing)
+            for name, transform, ins, outs, seed, options, pairing in (
+                ("crop", SquareCropAroundBBox(),
+                 [tmp_path / "jpg", tmp_path / "lab"],
+                 [root / "crops", root / "labels"], 3, {}, "zip"),
+                ("rot", RandomRotations(), [root / "crops"], [root / "rot"],
+                 4, {"num_rotations": 4, "method": "shear",
+                     "output_format": "jpeg"}, "one_input"),
+                ("sym", GenerateSymmetries(), [root / "rot"], [root / "sym"],
+                 5, {}, "one_input"))]
+        kernels.reset_launch_counts()
+        for step in steps[label]:
+            assert step.run(progress=False) == {
+                "Success": len(step.process_logs)}
+        if torch.device(device).type == "cuda":
+            assert kernels.launch_counts["shear_rotate_packed"] \
+                == steps[label][1].metrics.batches
+    for d in ("crops", "labels", "rot", "sym"):
+        got = {p.name: p.read_bytes()
+               for p in sorted((tmp_path / "card" / d).iterdir())}
+        want = {p.name: p.read_bytes()
+                for p in sorted((tmp_path / "cpu" / d).iterdir())}
+        assert got == want, d
+    for step in steps["card"]:
+        m = step.metrics
+        if native.available() and torch.device(cuda_device).type == "cuda":
+            assert 0 < m.d2h_bytes_fetched < m.d2h_bytes_full, step.name

@@ -99,13 +99,14 @@ def port_sources():
 
 
 def test_port_sources_hold_the_fan_out_modules():
-    """The import rule below covers the fuser and the five symmetry
-    fan-out composites."""
+    """The import rule below covers the fuser, the five symmetry
+    fan-out composites and the codec (ops/jpeg.py, io/native.py)."""
     names = {str(p.relative_to(PORT)) for p in port_sources()
              if PORT in p.parents}
     assert {"fuse.py", "transforms/rotsymchain.py", "transforms/chainsym.py",
             "transforms/symchain.py", "transforms/rotchainsym.py",
-            "transforms/symchainsym.py"} <= names
+            "transforms/symchainsym.py", "ops/jpeg.py",
+            "io/native.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -376,9 +377,9 @@ def test_retries_and_error_items(dataset):
 def test_load_and_decode_faults_are_per_item(dataset):
     """Three kinds of bad input each cost one item, the same three in both
     engines, and the other nine come out equal.  The error messages are
-    each codec's own (the JAX package decodes with its native library, the
-    port with Pillow), so of the failed entries the statuses, inputs and
-    outputs are compared, and only the label fault's message."""
+    each engine's own (each words its per-item decode fallback's failure
+    itself), so of the failed entries the statuses, inputs and outputs
+    are compared, and only the label fault's message."""
     root, imgs, labels = dataset
     bad = sorted(imgs.iterdir())
     bad[2].write_bytes(b"not a png")          # the probe fails: load_item
@@ -500,7 +501,21 @@ def test_sync_executor_and_pool_choice(monkeypatch):
     ({"options": {"native_compute": True}}, "native_compute"),
     ({"options": {"device_decode": True}}, "device_decode"),
     ({"options": {"device_encode": True}}, "device_encode")])
-def test_unported_options_raise_and_name_the_option(kwargs, named):
+def test_unported_options_raise_and_name_the_option(kwargs, named,
+                                                   monkeypatch):
+    if named in ("device_decode", "device_encode"):
+        # ported: an explicit True is taken where the native IO engine is
+        # built, and raises naming why where it is not
+        from image_processor_pipeline_tpu_torch.io import native
+
+        assert native.available()
+        ProcessingStep("s", SquareCropAroundBBox(), **kwargs)
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(native, "build_error",
+                            lambda: "jpeglib.h: No such file or directory")
+        with pytest.raises(RuntimeError, match=f"{named}.*jpeglib.h"):
+            ProcessingStep("s", SquareCropAroundBBox(), **kwargs)
+        return
     with pytest.raises(NotImplementedError, match=named):
         ProcessingStep("s", SquareCropAroundBBox(), **kwargs)
 
@@ -508,8 +523,8 @@ def test_unported_options_raise_and_name_the_option(kwargs, named):
 def test_unported_option_set_after_construction_raises_at_run(dataset):
     root, imgs, labels = dataset
     step = crop_step(root, imgs, labels)
-    step.options["device_encode"] = True
-    with pytest.raises(NotImplementedError, match="device_encode"):
+    step.options["native_compute"] = True
+    with pytest.raises(NotImplementedError, match="native_compute"):
         step.run(progress=False)
 
 

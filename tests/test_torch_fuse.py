@@ -415,11 +415,8 @@ def test_fuse_steps_rejects_an_unknown_tier_and_keeps_its_input(root):
     assert [describe(s) for s in steps] == before
 
 
-def test_rgba_probe_declines_what_the_port_cannot_classify(tmp_path):
-    """F12: the port's head probe is probe_bands alone: 8-bit RGBA PNGs
-    qualify; RGB, palette, 16-bit RGBA, JPEG and unreadable files do not
-    (the JAX probe agrees on all but the 16-bit file, which its Pillow
-    fallback accepts when its native probe is not built)."""
+def _probe_files(tmp_path):
+    """One file of each kind the RGBA head probe tells apart."""
     cv2 = pytest.importorskip("cv2")
     _png(tmp_path / "rgba.png", 4)
     _png(tmp_path / "rgb.png", 3)
@@ -430,11 +427,37 @@ def test_rgba_probe_declines_what_the_port_cannot_classify(tmp_path):
     (tmp_path / "bad.png").write_bytes(b"not a png")
     Image.fromarray(make_image(np.random.default_rng(1), 8, 8)).save(
         tmp_path / "j.jpg")
-    got = {p.name: tfuse._rgba_png(p) for p in sorted(tmp_path.iterdir())}
+    return sorted(tmp_path.iterdir())
+
+
+def test_rgba_probe_declines_what_the_port_cannot_classify(tmp_path):
+    """F12 closed: with both native libraries built, both fusers ask their
+    native probe_bands first and decide alike on every file: 8-bit RGBA
+    PNGs qualify; RGB, palette, 16-bit RGBA, JPEG and unreadable files do
+    not."""
+    from image_processor_pipeline_tpu.io import native as jnative
+    from image_processor_pipeline_tpu_torch.io import native
+
+    assert native.available() and jnative.available()
+    files = _probe_files(tmp_path)
+    got = {p.name: tfuse._rgba_png(p) for p in files}
     assert got == {"bad.png": False, "deep.png": False, "j.jpg": False,
                    "pal.png": False, "rgb.png": False, "rgba.png": True}
-    del got["deep.png"]
-    assert got == {p: jfuse._rgba_png(tmp_path / p) for p in got}
+    assert got == {p.name: jfuse._rgba_png(p) for p in files}
+
+
+def test_rgba_probe_falls_back_to_pillow_without_the_library(
+        tmp_path, monkeypatch):
+    """Without the native library the probe is Pillow's mode, as the JAX
+    fuser's fallback is: a 16-bit RGBA PNG then reads as RGBA and
+    qualifies."""
+    from image_processor_pipeline_tpu_torch.io import native
+
+    files = _probe_files(tmp_path)
+    monkeypatch.setattr(native, "probe_bands", lambda path: None)
+    got = {p.name: tfuse._rgba_png(p) for p in files}
+    assert got == {"bad.png": False, "deep.png": True, "j.jpg": False,
+                   "pal.png": False, "rgb.png": False, "rgba.png": True}
 
 
 # -- runs on the CPU ------------------------------------------------------
@@ -542,9 +565,9 @@ def test_fused_step_raises_as_its_unported_steps_would(images, tmp_path):
         pipe = tpkg.ProcessingPipeline(root_dir=tmp_path / str(fuse))
         for step in build(tpkg, ttransforms, SHAPES["chain-sym"][0],
                           tmp_path / str(fuse)):
-            step.options["device_encode"] = True
+            step.options["native_compute"] = True
             pipe.add_step(step)
         pipe.steps[0].input_paths = [images]
-        with pytest.raises(NotImplementedError, match="device_encode"):
+        with pytest.raises(NotImplementedError, match="native_compute"):
             pipe.run(progress=False, auto_fuse=fuse)
         assert not (tmp_path / str(fuse) / "f").exists()

@@ -416,8 +416,9 @@ def test_jpg_output_drops_alpha_and_bands_are_capped(inputs):
 def test_jpg_encoder_follows_the_final_stages_anchor(inputs):
     """A chain ending in a cv2-anchored stage (Flip) saves JPEG at quality
     95, one ending in a PIL-anchored stage (Enhance) at 75: the .png run of
-    the same chain and seed gives the pixels, and the port's encoder is
-    Pillow, so each .jpg is Pillow's encoding of them at that quality."""
+    the same chain and seed gives the pixels, and each .jpg is Pillow's
+    encoding of them at that quality (the port's native encoder writes
+    Pillow's bytes)."""
     cases = [([("Enhance", ()), ("Flip", (("o",),))], 95),
              ([("Flip", (("o",),)), ("Enhance", ())], 75)]
     for stages, quality in cases:
