@@ -52,7 +52,18 @@ IO engine builds (its compiler message when it does not), pipeline J
 made from a seed, once with the codec gates on "auto" and once off, the
 two runs' files byte for byte and the rotation kernel's launches, and
 the device JPEG halves on a [32, 512, 512, 3] batch on the card against
-the CPU, timed.  It prints the card's name and power
+the CPU, timed; then the entry points: the CLI (python -m
+image_processor_pipeline_tpu_torch run, JAX's example config with
+rotations by shear, in a process of its own, with and without
+--auto-fuse) against the same pipeline built in-process, files and
+reports byte for byte; sharded_augment_step at B=64, 640 -> 512 over a
+one-card mesh and over [cuda:0, cuda:0] (the rotation kernel through
+cuda_shear, the chain kernel through cuda_full) against the plain modes
+on the CPU; the engine's mesh (None, two entries of the card, 1) on a
+FusedChain and RandomRotations, same files; two CLI processes on the
+card in a gloo group over a host-sharded step, their files and merged
+report against the one-process run; a trace_dir run whose trace names
+the rotation kernel; and the multi-device dry run.  It prints the card's name and power
 limit, a JSON line of the kernels and, last, a JSON status line.  Any
 failed phase raises, so the status line is printed only when every phase
 passed.  Without a CUDA card it exits non-zero.
@@ -67,6 +78,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1435,6 +1447,348 @@ def codec_pipelines(root, dev, card, workers, launches):
                     for label, steps in runs.items()}}
 
 
+REPO = Path(__file__).resolve().parent
+# the entry_points phase: the CLI's rotations draw this many an image, the
+# engine-mesh steps take this many crops (odd: the mesh pads), and the
+# trace this many
+CLI_ROTATIONS = 5
+MESH_ITEMS = 63
+TRACE_ITEMS = 8
+# python -m's own mechanism (runpy.run_module with run_name "__main__"),
+# so a run of the CLI also prints the kernels' launch counts in its
+# process when it exits
+CLI_CODE = (
+    "import json, runpy, sys\n"
+    "from image_processor_pipeline_tpu_torch import kernels\n"
+    "try:\n"
+    "    runpy.run_module('image_processor_pipeline_tpu_torch',\n"
+    "                     run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    print('LAUNCH_COUNTS ' + json.dumps(kernels.launch_counts),\n"
+    "          flush=True)\n")
+
+
+def run_clis(arg_lists):
+    """Run ``python -m image_processor_pipeline_tpu_torch *args`` from the
+    repository root for each argument list, all at once; raise unless
+    every one exits 0.  Returns (output, wall seconds of them all, the
+    kernels' launch counts in that process) for each."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CLI_CODE, *args], cwd=REPO, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for args in arg_lists]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    results = []
+    for args, p, out in zip(arg_lists, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"CLI {args} exited {p.returncode}:\n"
+                                 f"{out[-4000:]}")
+        counts = [json.loads(line.split(" ", 1)[1])
+                  for line in out.splitlines()
+                  if line.startswith("LAUNCH_COUNTS ")]
+        if len(counts) != 1:
+            raise AssertionError(f"CLI {args}: no launch counts:\n{out}")
+        results.append((out, wall, counts[0]))
+    return results
+
+
+def step_lines(out):
+    """The engine's per-step summary lines a CLI run printed."""
+    return [line for line in out.splitlines()
+            if line.startswith("[step]") and "items/s" in line]
+
+
+def tree_bytes(root, dirs):
+    """{dir: {name: bytes}} of the files under each of ``dirs``."""
+    return {d: {p.name: p.read_bytes() for p in sorted((root / d).iterdir())}
+            for d in dirs}
+
+
+def stripped_report(path, *roots):
+    """A step's report entries with each of ``roots`` taken out, in input
+    order."""
+    text = Path(path).read_text()
+    for root in roots:
+        text = text.replace(str(root), "ROOT")
+    return sorted(json.loads(text), key=lambda e: e["inputs"])
+
+
+def entry_points(root, dev, card, workers, launches, imgs_dir, labels_dir):
+    """The entry points over the engine's 128 PNGs of 640 x 480: the CLI
+    (JAX's example config, rotations by shear, in a process of its own,
+    with and without --auto-fuse) against the same pipeline built in this
+    process; sharded_augment_step at B=64, 640 -> 512 over a one-card mesh
+    and over [cuda:0, cuda:0] (K2 through cuda_shear, K1 through
+    cuda_full) against the plain modes on the CPU; the engine's mesh
+    (None, two entries of the card, 1) on FusedChain and RandomRotations;
+    two CLI processes on the card in a gloo group over a host-sharded
+    step against the one-process files; a trace_dir run; the dry run.
+    Adds the kernels' launches to ``launches``; returns the measurements."""
+    from image_processor_pipeline_tpu_torch import ProcessingStep, kernels
+    from image_processor_pipeline_tpu_torch.__main__ import EXAMPLE
+    from image_processor_pipeline_tpu_torch.config import build_pipeline
+    from image_processor_pipeline_tpu_torch.models import chains
+    from image_processor_pipeline_tpu_torch.parallel import dryrun
+    from image_processor_pipeline_tpu_torch.parallel.mesh import (
+        make_mesh, sharded_augment_step)
+    from image_processor_pipeline_tpu_torch.transforms import RandomRotations
+    from image_processor_pipeline_tpu_torch.transforms.fused import (
+        Enhance, Flip, FusedChain, Rotate)
+    from image_processor_pipeline_tpu_torch.utils.trace_probe import read_trace
+
+    t_phase = time.perf_counter()
+    base = root / "EP"
+    base.mkdir()
+    n = ENGINE_IMAGES
+    found = {}
+
+    def add(counts):
+        for name in ("augment_full", "shear_rotate_packed"):
+            launches[name] += counts[name]
+
+    # ---- the CLI against the same pipeline built in this process --------
+    rot_options = {"num_rotations": CLI_ROTATIONS, "method": "shear"}
+
+    def config(run_root, **rotate):
+        crop, rot = EXAMPLE["steps"]
+        return {"root_dir": str(run_root), "steps": [
+            dict(crop, input_dirs=[str(imgs_dir), str(labels_dir)],
+                 workers=workers),
+            dict(rot, workers=workers, save_log=True,
+                 options=dict(rot_options), **rotate)]}
+
+    dirs = ("crops/imgs", "crops/labels", "rotated")
+    ref_root = base / "inprocess"
+    pipe = build_pipeline(config(ref_root))
+    t0 = time.perf_counter()
+    counters, counts = drive(kernels, None, lambda: pipe.run(progress=False))
+    ref_wall = time.perf_counter() - t0
+    crop_step, rot_step = pipe.steps
+    require_success(crop_step, n)
+    require_success(rot_step, n)
+    want = {name: 0 for name in counts} | {
+        "shear_rotate_packed": rot_step.metrics.batches}
+    if counts != want:
+        raise AssertionError(f"in-process CLI pipeline: launch counts "
+                             f"{counts}, expected {want}")
+    add(counts)
+    ref = tree_bytes(ref_root, dirs)
+    ref_reports = {name: stripped_report(ref_root / name, ref_root)
+                   for name in ("crops/crop.json", "rotate.json")}
+    if [len(ref[d]) for d in dirs] != [n, n, n * (CLI_ROTATIONS + 1)]:
+        raise AssertionError(f"in-process CLI pipeline: file counts "
+                             f"{[len(ref[d]) for d in dirs]}")
+    print(f"entry_points: the example pipeline built in this process: "
+          f"{2 * n} items in {ref_wall:.3f} s ({2 * n / ref_wall:.1f} "
+          f"items/s); {step_line(rot_step, card)}; shear_rotate_packed "
+          f"launched {counts['shear_rotate_packed']} times")
+    found["inprocess"] = {"wall_s": ref_wall, "items": 2 * n,
+                          "rotations_items_per_s":
+                              rot_step.metrics.items_per_second}
+    # both CLI runs at once (separate roots), sharing the host's cores
+    cli_runs = (("cli", []), ("cli_auto_fuse", ["--auto-fuse"]))
+    for label, _ in cli_runs:
+        (base / f"{label}.json").write_text(
+            json.dumps(config(base / label)))
+    results = run_clis([["run", str(base / f"{label}.json"), "--strict",
+                         "--no-progress", *flags]
+                        for label, flags in cli_runs])
+    for (label, flags), (out, wall, counts) in zip(cli_runs, results):
+        run_root = base / label
+        if counts != want:
+            raise AssertionError(f"{label}: launch counts {counts}, "
+                                 f"expected {want}")
+        add(counts)
+        if tree_bytes(run_root, dirs) != ref:
+            raise AssertionError(f"{label}: its files differ from the "
+                                 f"pipeline built in this process")
+        for name, entries in ref_reports.items():
+            if stripped_report(run_root / name, run_root) != entries:
+                raise AssertionError(f"{label}: report {name} differs")
+        print(f"entry_points: python -m image_processor_pipeline_tpu_torch "
+              f"run cfg.json --strict {' '.join(flags)}: exit 0, "
+              f"{2 * n} items in {wall:.3f} s of process wall for both CLI "
+              f"runs at once, start-up included ({2 * n / wall:.1f} items/s "
+              f"a run); files and reports == "
+              f"in-process, byte for byte ({[len(ref[d]) for d in dirs]} "
+              f"files); shear_rotate_packed launched "
+              f"{counts['shear_rotate_packed']} times in its process; "
+              f"card {card}")
+        for line in step_lines(out):
+            print(f"  {label}: {line}")
+        found[label] = {"wall_s": wall, "items": 2 * n,
+                        "items_per_s": 2 * n / wall}
+
+    # ---- sharded_augment_step: K2 (cuda_shear) and K1 (cuda_full) -------
+    chain = chains.AugmentChain(input_size=640, device=dev)
+    images, xywhn, seeds = chain.example_inputs(64)
+    B = len(seeds)
+    t0 = time.perf_counter()
+    cpu_images = images.cpu()
+    plain = {None: chains.augment_chain(cpu_images, xywhn, seeds, 512,
+                                        "shear"),
+             "cuda_full": chains.augment_chain(cpu_images, xywhn, seeds,
+                                               512, "full_reference")}
+    print(f"entry_points: plain 'shear' and 'full_reference' on the CPU at "
+          f"B=64, 640 -> 512 in {time.perf_counter() - t0:.1f} s")
+    kernel_of = {None: "shear_rotate_packed", "cuda_full": "augment_full"}
+    found["sharded_step"] = {}
+    for mesh_label, devices in (("1 card", [dev]),
+                                ("[cuda:0, cuda:0]", [dev, dev])):
+        mesh = make_mesh(devices=devices)
+        for rotation, kernel in kernel_of.items():
+            step = sharded_augment_step(mesh, crop=512, rotation=rotation)
+            (got, count), counts = drive(
+                kernels, {kernel: len(devices)},
+                lambda: step(images, xywhn, seeds))
+            add(counts)
+            err = check_equal(got.cpu(), plain[rotation],
+                              f"sharded_augment_step({mesh_label}, "
+                              f"{rotation}) != the plain mode on the CPU")
+            if int(count) != B:
+                raise AssertionError(f"sharded_augment_step({mesh_label}, "
+                                     f"{rotation}): count {int(count)} != {B}")
+            ms = time_calls(lambda i: step(images, xywhn, seeds), calls=10,
+                            windows=3)
+            label = f"{mesh_label}, {rotation or 'None (cuda_shear)'}"
+            found["sharded_step"][label] = {
+                "ms": statistics.median(ms), "ms_range": [min(ms), max(ms)],
+                "launches": counts[kernel], "max_abs_err": err}
+            print(f"entry_points: sharded_augment_step over {mesh_label}, "
+                  f"rotation {rotation or 'None -> cuda_shear'}: B={B}, "
+                  f"count {int(count)}, == the plain mode on the CPU byte "
+                  f"for byte, {kernel} launched {counts[kernel]} times; "
+                  f"{statistics.median(ms):.3f} ms a call (median of 3 "
+                  f"windows of 10, {min(ms):.3f}-{max(ms):.3f}); card {card}")
+    del images, cpu_images, plain
+
+    # ---- the engine's mesh ------------------------------------------------
+    subset = base / "mesh_in"
+    subset.mkdir()
+    for p in sorted((ref_root / "crops/imgs").iterdir())[:MESH_ITEMS]:
+        shutil.copy(p, subset / p.name)
+    found["engine_mesh"] = {}
+    for t_label, make, options in (
+            ("FusedChain(Rotate(shear), Flip, Enhance)",
+             lambda: FusedChain([Rotate(method="shear"), Flip(), Enhance()]),
+             {}),
+            ("RandomRotations(shear, 2)", RandomRotations,
+             {"method": "shear", "num_rotations": 2})):
+        files = {}
+        for m_label, mesh in (("None", None),
+                              ("[cuda:0, cuda:0]", make_mesh(
+                                  devices=[dev, dev])), ("1", 1)):
+            out_dir = base / "mesh" / f"{len(found['engine_mesh'])}_{len(files)}"
+            step = ProcessingStep(
+                "mesh_step", make(), input_dirs=[subset],
+                output_dirs=[out_dir], seed=21, mesh=mesh, device=dev,
+                workers=workers, options=options)
+            _, counts = drive(kernels, None,
+                              lambda: step.run(progress=False))
+            require_success(step, MESH_ITEMS)
+            shards = 2 if m_label.startswith("[") else 1
+            want = {name: 0 for name in counts} | {
+                "shear_rotate_packed": shards * step.metrics.batches}
+            if counts != want:
+                raise AssertionError(f"engine mesh {m_label}, {t_label}: "
+                                     f"launch counts {counts}, expected "
+                                     f"{want}")
+            add(counts)
+            files[m_label] = tree_bytes(out_dir, ["."])
+            found["engine_mesh"][f"{t_label}, mesh={m_label}"] = {
+                "items_per_s": step.metrics.items_per_second,
+                "wall_s": step.metrics.wall_seconds,
+                "batches": step.metrics.batches,
+                "launches": counts["shear_rotate_packed"]}
+            print(f"entry_points: engine mesh={m_label}, {t_label}: "
+                  f"{step_line(step, card)}; shear_rotate_packed launched "
+                  f"{counts['shear_rotate_packed']} times")
+        first = files["None"]
+        if any(f != first for f in files.values()) or not first["."]:
+            raise AssertionError(f"engine mesh, {t_label}: the three "
+                                 f"runs' files differ")
+        print(f"entry_points: engine mesh, {t_label}: mesh None, "
+              f"[cuda:0, cuda:0] and 1 wrote the same "
+              f"{len(first['.'])} files, byte for byte")
+
+    # ---- two processes on the card, host-sharded, over gloo ---------------
+    two_root = base / "two"
+    two_cfg = base / "two.json"
+    two_cfg.write_text(json.dumps({"root_dir": str(two_root), "steps": [
+        dict(EXAMPLE["steps"][1], input_dirs=[str(ref_root / "crops/imgs")],
+             workers=workers, save_log=True, host_sharded=True,
+             options=dict(rot_options))]}))
+    port = 29500 + os.getpid() % 1000
+    results = run_clis([
+        ["run", str(two_cfg), "--strict", "--no-progress", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(pid)] for pid in range(2)])
+    counts = {name: sum(r[2][name] for r in results)
+              for name in results[0][2]}
+    add(counts)
+    if counts["shear_rotate_packed"] < 2 or counts["augment_full"]:
+        raise AssertionError(f"two processes: launch counts {counts}")
+    if tree_bytes(two_root, ["rotated"]) != {"rotated": ref["rotated"]}:
+        raise AssertionError("two processes: the union of their files "
+                             "differs from the one-process run's")
+    merged = stripped_report(two_root / "rotate.json", two_root, ref_root)
+    if merged != ref_reports["rotate.json"]:
+        raise AssertionError("two processes: the merged report is not the "
+                             "one-process report (every item once)")
+    found["two_processes"] = {"wall_s": results[0][1], "per_process": []}
+    for pid, (out, wall, c) in enumerate(results):
+        lines = step_lines(out)
+        print(f"entry_points: process {pid} of 2 (gloo, host_sharded): "
+              f"{lines[-1] if lines else out[-300:]}; shear_rotate_packed "
+              f"launched {c['shear_rotate_packed']} times")
+        rate = re.search(r"\(([0-9]+) items in ([0-9.]+)s, ([0-9.]+) "
+                         r"items/s\)", lines[-1])
+        found["two_processes"]["per_process"].append({
+            "items": int(rate.group(1)), "step_s": float(rate.group(2)),
+            "items_per_s": float(rate.group(3))})
+    print(f"entry_points: two processes: {n} items in {results[0][1]:.3f} s "
+          f"of process wall, start-up included ({n / results[0][1]:.1f} "
+          f"items/s); the union of their files == the one-process run's, "
+          f"the merged report holds every item once; card {card}")
+
+    # ---- trace_dir ----------------------------------------------------------
+    trace_dir = base / "trace"
+    step = ProcessingStep(
+        "traced", RandomRotations(), input_dirs=[subset],
+        output_dirs=[base / "traced"], seed=3, device=dev,
+        sample_k=TRACE_ITEMS, workers=workers, trace_dir=trace_dir,
+        options={"method": "shear", "num_rotations": 1})
+    _, counts = drive(kernels, None, lambda: step.run(progress=False))
+    require_success(step, TRACE_ITEMS)
+    add(counts)
+    trace = read_trace(trace_dir)
+    print(f"entry_points: trace_dir run: {trace}; shear_rotate_packed "
+          f"launched {counts['shear_rotate_packed']} times")
+    if trace["traces"] != 1 or not trace["names_kernel"]:
+        raise AssertionError("trace_dir: the step's trace does not name "
+                             "shear_tile_kernel")
+    found["trace_bytes"] = next(trace_dir.glob("*.pt.trace.json")).stat(
+        ).st_size
+
+    # ---- the dry run over two entries of the card --------------------------
+    _, counts = drive(kernels, None, lambda: dryrun.dryrun_multichip(
+        2, devices=[dev, dev]))
+    if counts["shear_rotate_packed"] < 2:
+        raise AssertionError(f"dryrun_multichip: launch counts {counts}")
+    add(counts)
+    found["phase_s"] = time.perf_counter() - t_phase
+    print(f"entry_points phase: {found['phase_s']:.1f} s")
+    return found
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2127,6 +2481,8 @@ def main() -> None:
             root, dev, card, workers, launches, root / "A" / "crops" / "imgs",
             root / "C" / "mask")
         codec = codec_pipelines(root, dev, card, workers, launches)
+        entry = entry_points(root, dev, card, workers, launches, imgs_dir,
+                             labels_dir)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -2140,7 +2496,8 @@ def main() -> None:
         "bound_ms_by_batch": {f"B={B}": bound_ms[name, B] for B in BATCHES},
         "plain_ms_by_batch": {f"B={B}": plain_ms[name, B] for B in BATCHES},
     } | ({"engine": engine_kernel, "fused_chain": stage_kernel,
-          "video_chain": video_kernel, "codec": codec} | fanout_kernel
+          "video_chain": video_kernel, "codec": codec,
+          "entry_points": entry} | fanout_kernel
          if name == "shear_rotate_packed" else {})
         for name, (source, replaces) in KERNELS.items()] + [{
         "name": "rev_probe", "route": "cuda", "source": CSRC + "rev_probe.cu",

@@ -21,11 +21,16 @@ alpha paste, ``geometry.resize`` Pillow's fixed-point resample),
 ``ops.augment`` and ``ops.rotate`` (the wrappers around the
 hand-written CUDA kernels in ``csrc/``), ``kernels`` (nvcc build and ctypes
 binding), ``models.chains`` (the flagship chain as an ``nn.Module``),
-``utils`` and ``interop`` (carries the JAX package's draws across).
+``utils`` and ``interop`` (carries the JAX package's draws across),
+``io.native`` and ``ops.jpeg`` (the native IO engine and the device JPEG
+halves), ``parallel`` (meshes over several devices, ``torch.distributed``
+process groups, the multi-device dry run), ``config`` and the CLI
+(``python -m image_processor_pipeline_tpu_torch run cfg.json``, the JAX
+package's JSON configs), ``utils.profiling.device_trace`` and
+``utils.hsv_tuner``.
 
 Steps compute on ``device="cuda"`` unless told ``device="cpu"``.  Not ported
-yet: the device JPEG codec, the native C++ twins, meshes, the CLI and
-``config``.
+yet: the native C++ compute twins (``options["native_compute"]=True``).
 """
 
 from image_processor_pipeline_tpu_torch.pipeline import ProcessingPipeline, ProcessingStep

@@ -27,11 +27,14 @@ card is there; ``device="cpu"`` runs the same functions on CPU tensors.
 ``options["device_decode"]`` and ``options["device_encode"]`` ("auto":
 on when the step's device is a CUDA card) ship sparse JPEG coefficients
 between host and device instead of pixels (ops/jpeg.py); an explicit True
-raises when the native IO engine they need could not be built.  Options
-of the JAX engine whose modules are not ported yet (``mesh``,
-``host_sharded``, ``trace_dir``, ``native_compute=True``) raise
-NotImplementedError naming the option; ``native_compute="auto"`` means
-the device path.
+raises when the native IO engine they need could not be built.
+``mesh`` splits every batch over the devices of a mesh
+(parallel/mesh.py), ``host_sharded`` splits a step's items over the
+processes of a ``torch.distributed`` group (parallel/distributed.py),
+and ``trace_dir`` records a torch.profiler trace of the step.
+``native_compute=True`` (the JAX engine's C++ twins, not ported yet)
+raises NotImplementedError; ``native_compute="auto"`` means the device
+path.
 ``ProcessingPipeline.run(auto_fuse=...)`` rewrites the step list with the
 port's own fuser (fuse.py) exactly as the JAX engine does.
 
@@ -126,13 +129,20 @@ class ProcessingStep:
         self.retries = max(0, int(retries))
         self.resume = bool(resume)
         self.host_sharded = bool(host_sharded)
-        #: multi-device data parallelism is not ported yet: anything but
-        #: None or False raises NotImplementedError
+        #: in-process multi-device data parallelism for batched transforms:
+        #: None (default) = auto on a CUDA step (a 1-D data mesh over all
+        #: local cards when there are several), none on a CPU step; False
+        #: = single-device; "auto" = the auto mesh; int n = a mesh over
+        #: the first n local cards (on a CPU step, the CPU n times); or a
+        #: prebuilt parallel.mesh.Mesh with a "data" axis, on devices of
+        #: the step's device type
         self.mesh = mesh
         #: where batched transforms compute: "cuda" (the default; raises
         #: without a card) or "cpu"
         self.device = device
         self._check_unported()
+        if not isinstance(mesh, (type(None), bool, int, str)):
+            self._check_mesh_device(mesh)
         self.metrics = StageMetrics()
 
         self.input_paths: List[Path] = []
@@ -173,21 +183,12 @@ class ProcessingStep:
         self._resolve_paths()
 
     def _check_unported(self) -> None:
-        """Raise for every option of the JAX engine whose module this port
-        lacks so far, naming the option; none is silently ignored."""
-        unported = []
-        if self.mesh not in (None, False):
-            unported.append("mesh")
-        if self.host_sharded:
-            unported.append("host_sharded")
-        if self.trace_dir:
-            unported.append("trace_dir")
+        """Raise for the option of the JAX engine whose module this port
+        lacks so far, naming it; it is never silently ignored."""
         if self.options.get("native_compute") is True:
-            unported.append("options['native_compute']=True")
-        if unported:
             raise NotImplementedError(
                 f"step {self.name!r}: not ported to PyTorch yet: "
-                + ", ".join(unported))
+                "options['native_compute']=True")
         codec = [n for n in ("device_decode", "device_encode")
                  if self.options.get(n) is True]
         if codec:
@@ -199,6 +200,53 @@ class ProcessingStep:
                     + ", ".join(f"options[{n!r}]=True" for n in codec)
                     + " needs the native IO engine, which is unavailable: "
                     + str(native.build_error()))
+
+    def _check_mesh_device(self, mesh) -> None:
+        """A prebuilt mesh must carry 'data' and sit on the step's device
+        type: a CPU step never computes on a card, nor the reverse."""
+        if "data" not in getattr(mesh, "axis_names", ()):
+            raise ValueError("mesh must carry a 'data' axis")
+        import torch
+
+        want = torch.device(self.device).type
+        if mesh.device_type != want:
+            raise ValueError(
+                f"step {self.name!r} has device={str(self.device)!r} but its "
+                f"mesh is on {mesh.device_type} devices: {mesh}")
+
+    def _resolve_mesh(self):
+        """Resolve the step's ``mesh`` knob to a parallel.mesh.Mesh (or
+        None).  "auto"/int build a 1-D data mesh over the local cards
+        and collapse to None when that is one device, so "auto" is always
+        safe to pass; a CPU step's pool is the CPU, which an int repeats
+        (the counterpart of the JAX package's virtual CPU devices)."""
+        spec = self.mesh
+        if spec is False:
+            return None
+        device = self._device()
+        if spec is None:
+            if device.type == "cpu":
+                return None
+            spec = "auto"
+        from image_processor_pipeline_tpu_torch.parallel import mesh as mesh_mod
+
+        if isinstance(spec, str):
+            if spec != "auto":
+                raise ValueError(
+                    f"mesh must be None, False, 'auto', an int, or a Mesh; "
+                    f"got {spec!r}")
+            local = (mesh_mod.local_devices() if device.type == "cuda"
+                     else [device])
+            return (mesh_mod.make_mesh(len(local), devices=local)
+                    if len(local) > 1 else None)
+        if isinstance(spec, int):
+            if spec <= 1:
+                return None
+            local = (mesh_mod.local_devices() if device.type == "cuda"
+                     else [device] * spec)
+            return mesh_mod.make_mesh(spec, devices=local)
+        self._check_mesh_device(spec)
+        return spec
 
     def _device(self):
         """The step's torch device; raises when it names a CUDA card and
@@ -267,6 +315,31 @@ class ProcessingStep:
         # seeds derive from this index, so a resumed run draws the same
         # per-item randomness as the uninterrupted run would have.
         indexed = enumerate(iterator)
+        if self.host_sharded:
+            # multi-process data parallelism: every process runs the same
+            # deterministic pairing, keeps items i % n == rank, and seeds
+            # stay tied to the ORIGINAL index — the union of all
+            # processes' outputs equals a single-process run's, bit for bit
+            from image_processor_pipeline_tpu_torch.parallel import distributed
+
+            pid = distributed.process_index()
+            nproc = distributed.process_count()
+            if nproc > 1 and self.seed is None:
+                # without a seed, RNG-consuming pairings ('sample',
+                # 'modulo' shuffle, sample_k) draw DIFFERENT orders per
+                # process — processes would double-process some items
+                # and skip others
+                raise ValueError(
+                    f"step {self.name!r}: host_sharded=True requires a "
+                    "seed so every process generates the identical "
+                    "pairing order"
+                )
+            if nproc > 1:
+                indexed = (
+                    (i, a) for i, a in indexed if i % nproc == pid
+                )
+                if total is not None:
+                    total = (total - pid + nproc - 1) // nproc
         if self.resume:
             indexed, skipped = self._filter_resumed(indexed)
             if skipped:
@@ -277,16 +350,18 @@ class ProcessingStep:
 
         from image_processor_pipeline_tpu_torch.transforms.base import BatchTransform
         from image_processor_pipeline_tpu_torch.io import native as _native_io
+        from image_processor_pipeline_tpu_torch.utils.profiling import device_trace
 
         # auto-tiled PNG divides the cores by this step's saver width
         # (io/native.py:set_encoder_concurrency); the previous value comes
         # back after the step, so a caller's own setting survives it
         prev_concurrency = _native_io.set_encoder_concurrency(self.workers)
         try:
-            if isinstance(self.process_function, BatchTransform):
-                self._run_batched(indexed, total, progress)
-            else:
-                self._run_host(indexed, total, progress)
+            with device_trace(self.trace_dir):
+                if isinstance(self.process_function, BatchTransform):
+                    self._run_batched(indexed, total, progress)
+                else:
+                    self._run_host(indexed, total, progress)
         finally:
             _native_io.set_encoder_concurrency(prev_concurrency)
 
@@ -433,9 +508,16 @@ class ProcessingStep:
         from image_processor_pipeline_tpu_torch.io.batching import Bucketizer
         from image_processor_pipeline_tpu_torch.io.images import fill_pending_images
         from image_processor_pipeline_tpu_torch.ops import jpeg as djpeg
+        from image_processor_pipeline_tpu_torch.parallel.mesh import device_scope
         from image_processor_pipeline_tpu_torch.transforms.base import host_zeros
 
         device = self._device()
+        # in-process multi-device data parallelism: each batch's rows
+        # split over the mesh's data axis
+        device_mesh = self._resolve_mesh()
+        mesh_quantum = (
+            int(device_mesh.shape["data"]) if device_mesh is not None else 1
+        )
         # the sticky device_encode/device_decode disables are per-RUN
         # state: a reused transform instance (resume pass, same object in
         # two steps) must not inherit a previous run's dense-content trip
@@ -465,23 +547,33 @@ class ProcessingStep:
         groups = defaultdict(list)
         inflight = deque()
 
-        def saver(chunk, n_valid, out_dev):
+        def fetch(part, rows, n):
+            """The first ``n`` items of one output dict (a whole batch, or
+            one mesh shard's rows), after the transform's shrink hook."""
+            if transform.shrinks_output:
+                # meter by output residency: a batch whose only tensor
+                # is a stashed underscore key (symmetry's _input_dev)
+                # still fetches real bytes in its shrink hook
+                resident = any(isinstance(x, torch.Tensor)
+                               for x in _leaves(part, private=True))
+                full = _tree_bytes(part) if resident else 0
+                part = transform.shrink_output(part, rows, self.options)
+                if resident:
+                    with logs_lock:
+                        self.metrics.d2h_bytes_full += full
+                        self.metrics.d2h_bytes_fetched += _tree_bytes(part)
+            return transform.materialize_batch(part, n)
+
+        def saver(chunk, n_valid, shards):
             with timer.measure("save"):
-                if transform.shrinks_output:
-                    # meter by output residency: a batch whose only tensor
-                    # is a stashed underscore key (symmetry's _input_dev)
-                    # still fetches real bytes in its shrink hook
-                    resident = any(isinstance(x, torch.Tensor)
-                                   for x in _leaves(out_dev, private=True))
-                    full = _tree_bytes(out_dev) if resident else 0
-                    out_dev = transform.shrink_output(
-                        out_dev, chunk, self.options)
-                    if resident:
-                        with logs_lock:
-                            self.metrics.d2h_bytes_full += full
-                            self.metrics.d2h_bytes_fetched += (
-                                _tree_bytes(out_dev))
-                outs = transform.materialize_batch(out_dev, n_valid)
+                # shard by shard, each on its own device; shards of mesh
+                # padding alone are neither shrunk nor fetched
+                outs = []
+                for lo, hi, dev, part in shards:
+                    if lo < n_valid:
+                        with device_scope(dev):
+                            outs += fetch(part, chunk[lo:hi],
+                                          min(hi, n_valid) - lo)
                 for item, out in zip(chunk[:n_valid], outs):
                     entry = item["_entry"]
                     if "_load_error" in item:
@@ -507,6 +599,12 @@ class ProcessingStep:
 
         def dispatch(key, chunk, n_valid):
             self.metrics.batches += 1
+            if mesh_quantum > 1 and len(chunk) % mesh_quantum:
+                # pad to the data-axis multiple (duplicate tail items are
+                # computed redundantly and discarded via n_valid, like the
+                # ladder padding)
+                chunk = chunk + [chunk[-1]] * (
+                    mesh_quantum - len(chunk) % mesh_quantum)
             with timer.measure("decode"):
                 # probed items decode here, a whole bucket into one stacked
                 # array (pinned host memory when the step runs on a card);
@@ -529,13 +627,18 @@ class ProcessingStep:
                         transform, dd_stats["dense"], dd_stats["n"])
             with timer.measure("device"):
                 out_dev = transform.launch_batch(
-                    key, chunk, self.options, device=device)
+                    key, chunk, self.options, device=device,
+                    mesh=device_mesh)
+                # a batch with no mesh is one shard
+                shards = (out_dev if device_mesh is not None
+                          else [(0, len(chunk), device, out_dev)])
                 # async device→host copy: it overlaps the next batch's
                 # compute (deferred to the saver when the transform
                 # shrinks its output on the device first)
                 if not transform.shrinks_output:
-                    transform.start_host_copy(out_dev)
-            inflight.append(save_pool.submit(saver, chunk, n_valid, out_dev))
+                    for *_, part in shards:
+                        transform.start_host_copy(part)
+            inflight.append(save_pool.submit(saver, chunk, n_valid, shards))
             while len(inflight) > max_inflight:
                 inflight.popleft().result()
 
@@ -729,9 +832,20 @@ class ProcessingStep:
         """Report target: <output[0].parent>/<name with suffix .json>.
         The reference uses Path(name).with_suffix(".json") (pipeline.py:488),
         which REPLACES a trailing dotted segment in the step name — e.g.
-        "crop.v2" reports to crop.json, not crop.v2.json."""
+        "crop.v2" reports to crop.json, not crop.v2.json.
+
+        Host-sharded steps of a multi-process run write per-process
+        reports (<name>.host<rank>.json); merge them with
+        parallel.distributed.merge_host_reports to recover the reference
+        schema at the reference path."""
         parent = Path(self.output_paths[0]).parent
         name = Path(self.name).with_suffix(".json").name
+        if self.host_sharded:
+            from image_processor_pipeline_tpu_torch.parallel import distributed
+
+            if distributed.process_count() > 1:
+                stem = Path(name).stem
+                name = f"{stem}.host{distributed.process_index()}.json"
         return parent / name
 
     def _flush_report(self) -> None:

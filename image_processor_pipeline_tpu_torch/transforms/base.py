@@ -22,9 +22,16 @@ behind a CUDA event, and ``materialize_batch`` (typically called from a
 saver thread) waits on that event alone, never on the whole device.  A
 transform that shrinks its output on the device first (``shrinks_output``,
 the coefficient transport of ops/jpeg.py) starts that copy from its
-``shrink_output`` hook instead, in the saver thread.  The JAX class's
-``native_fn`` / ``launch_batch_native`` and its sharded jit are not ported
-yet.
+``shrink_output`` hook instead, in the saver thread.
+
+With a mesh (``parallel/mesh.py``) ``launch_batch`` splits the stacked
+batch over the mesh's ``data`` axis and runs ``device_fn`` on each shard
+on that shard's device, the counterpart of the JAX class's
+``_jitted_sharded``.  It returns the batch's shards, ``(lo, hi, device,
+outputs)`` each; the engine gives each shard its own pinned copy and
+event, and shrinks, fetches and saves a batch shard by shard (a batch
+with no mesh is one shard).  The JAX class's ``native_fn``
+/ ``launch_batch_native`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -59,12 +66,12 @@ def to_device(array, device) -> torch.Tensor:
     t = array if isinstance(array, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(array))
     device = torch.device(device)
-    if device.type != "cuda" or (
-            t.device.type == "cuda"
-            and device.index in (None, t.device.index)):
-        # a tensor already on the card (a batch the hybrid decode made
-        # there) stays where it is
+    if device.type != "cuda":
         return t.to(device)
+    if t.device.type == "cuda":
+        # a tensor already on a card (a batch the hybrid decode made
+        # there) stays where it is or goes card to card
+        return t.to(device, non_blocking=True)
     if not t.is_pinned():
         pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         pinned.copy_(t)
@@ -77,8 +84,8 @@ def host_arrays(out_dev: Dict) -> Dict[str, np.ndarray]:
     host: starts their copies if ``start_host_copy`` has not, then waits on
     the batch's own copy event."""
     BatchTransform.start_host_copy(out_dev)
-    host, event = out_dev[_HOST_COPY]
-    if event is not None:
+    host, events = out_dev[_HOST_COPY]
+    for event in events:
         event.synchronize()
     return {k: v.numpy() for k, v in host.items()}
 
@@ -184,20 +191,46 @@ class BatchTransform:
 
     # -- engine glue --------------------------------------------------------
     def launch_batch(self, key: Tuple, chunk: List[Dict], options: Dict,
-                     device):
+                     device, mesh=None):
         """Stack + dispatch one batch to ``device`` WITHOUT blocking.
         ``device`` is required: the caller names the card or asks for the
         CPU, nothing is chosen for it.
 
         Returns the output dict of tensors; materialize with
         ``materialize_batch`` (typically from a saver thread) so encode of
-        batch N overlaps device compute of batch N+1.
+        batch N overlaps device compute of batch N+1.  With ``mesh`` the
+        batch is split over its ``data`` axis (the engine pads the chunk
+        to a multiple of the axis) and the list of its shards comes back
+        (``dispatch``).
         """
         arrays = self.stack_batch(chunk, options, device)
         static = self.static_args(options, key)
-        batch = {k: v if k in self.host_fields else to_device(v, device)
-                 for k, v in arrays.items()}
-        return self.device_fn(batch, static)
+        return self.dispatch(
+            arrays, lambda batch: self.device_fn(batch, static), device,
+            mesh)
+
+    def dispatch(self, arrays: Dict, fn, device, mesh=None):
+        """``fn`` of the stacked ``arrays`` moved to ``device`` (the
+        ``host_fields`` stay numpy on the host).  With ``mesh``, the list
+        of the batch's shards, ``(lo, hi, device, outputs)`` for each
+        shard of the ``data`` axis in order: ``fn`` of rows [lo, hi) on
+        that shard's device."""
+        from image_processor_pipeline_tpu_torch.parallel.mesh import (
+            device_scope, shard_ranges)
+
+        batch = len(arrays["seed"])
+        if mesh is None:
+            parts = [(0, batch, device, arrays)]
+        else:
+            parts = [(lo, hi, dev, {k: v[lo:hi] for k, v in arrays.items()})
+                     for lo, hi, dev in shard_ranges(batch, mesh)]
+        shards = []
+        for lo, hi, dev, rows in parts:
+            with device_scope(dev):
+                shards.append((lo, hi, dev, fn(
+                    {k: v if k in self.host_fields else to_device(v, dev)
+                     for k, v in rows.items()})))
+        return shards if mesh is not None else shards[0][3]
 
     #: transforms that override shrink_output set this so the engine defers
     #: the device→host copy to the saver thread (the shrink must run first)
@@ -217,10 +250,11 @@ class BatchTransform:
         with '_' excepted) is copied into pinned host memory of its own
         without blocking, and a CUDA event is recorded behind the copies.
         The host tensors and the event are stashed in ``out_dev`` for
-        ``materialize_batch``.  Host tensors need no copy."""
+        ``materialize_batch``.  Host tensors need no copy.  The engine
+        calls it once for each shard of a batch launched over a mesh."""
         if _HOST_COPY in out_dev:
             return
-        host, event = {}, None
+        host, cards = {}, set()
         for k, v in out_dev.items():
             if str(k).startswith("_") or not isinstance(v, torch.Tensor):
                 continue
@@ -228,13 +262,16 @@ class BatchTransform:
                 dst = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
                 dst.copy_(v, non_blocking=True)
                 host[k] = dst
-                if event is None:
-                    event = torch.cuda.Event()
+                cards.add(v.device)
             else:
                 host[k] = v
-        if event is not None:
-            event.record()
-        out_dev[_HOST_COPY] = (host, event)
+        # one event on each card's current stream, behind its copies
+        events = []
+        for card in cards:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(card))
+            events.append(event)
+        out_dev[_HOST_COPY] = (host, events)
 
     @staticmethod
     def materialize_batch(out_dev: Dict, n: int) -> List[Dict]:

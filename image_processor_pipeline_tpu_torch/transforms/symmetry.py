@@ -141,18 +141,21 @@ class GenerateSymmetries(BatchTransform):
         return _syms(batch["image"], batch["size"][:, 0],
                      batch["size"][:, 1], static)
 
-    def launch_batch(self, key, chunk, options, device):
+    def launch_batch(self, key, chunk, options, device, mesh=None):
         """Base dispatch, plus a zero-copy reference to the INPUT batch on
         the device so the shrink hook can device-encode the 'o' copy (and
         source the pixel fallback) when the host kept no image — the
-        fully codec-to-codec path."""
+        fully codec-to-codec path.  Under a mesh each shard keeps its own
+        rows of the input."""
         arrays = self.stack_batch(chunk, options, device)
         static = self.static_args(options, key)
-        batch = {k: v if k in self.host_fields else to_device(v, device)
-                 for k, v in arrays.items()}
-        out = dict(self.device_fn(batch, static))
-        out["_input_dev"] = batch["image"]
-        return out
+
+        def run(batch):
+            out = dict(self.device_fn(batch, static))
+            out["_input_dev"] = batch["image"]
+            return out
+
+        return self.dispatch(arrays, run, device, mesh)
 
     # -- hybrid device JPEG encode (D2H ships coefficients, not pixels) ----
     # Symmetries write up to 4 full canvases per input at the

@@ -55,6 +55,15 @@ PORT_MODULES = (
     "image_processor_pipeline_tpu_torch.ops.jpeg",
     "image_processor_pipeline_tpu_torch.io.native",
     "image_processor_pipeline_tpu_torch.io.images",
+    "image_processor_pipeline_tpu_torch.config",
+    "image_processor_pipeline_tpu_torch.__main__",
+    "image_processor_pipeline_tpu_torch.parallel",
+    "image_processor_pipeline_tpu_torch.parallel.mesh",
+    "image_processor_pipeline_tpu_torch.parallel.distributed",
+    "image_processor_pipeline_tpu_torch.parallel.dryrun",
+    "image_processor_pipeline_tpu_torch.utils.profiling",
+    "image_processor_pipeline_tpu_torch.utils.hsv_tuner",
+    "image_processor_pipeline_tpu_torch.utils.trace_probe",
 )
 
 

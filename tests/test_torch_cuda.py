@@ -1239,3 +1239,152 @@ def test_pipeline_j_with_transports_on_card_writes_the_cpu_files(
         m = step.metrics
         if native.available() and torch.device(cuda_device).type == "cuda":
             assert 0 < m.d2h_bytes_fetched < m.d2h_bytes_full, step.name
+
+
+# -- meshes on the card (parallel/mesh.py, ProcessingStep(mesh=...)) ---------
+
+def _mesh_chain_inputs(B=8, size=96, seed=9):
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (B, size, size, 3), np.uint8)
+    xywhn = np.concatenate([rng.uniform(0.3, 0.7, (B, 2)),
+                            rng.uniform(0.05, 0.3, (B, 2))],
+                           axis=1).astype(np.float32)
+    return images, xywhn, np.arange(B, dtype=np.int64) * 7 + seed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rotation,kernel", [
+    ("cuda_full", "augment_full"), ("cuda_shear", "shear_rotate_packed"),
+    (None, "shear_rotate_packed")])
+def test_sharded_step_on_two_card_entries_matches_the_cpu(cuda_device,
+                                                         rotation, kernel):
+    """sharded_augment_step over [cuda:0, cuda:0] launches its kernel once
+    a shard and gives the same bytes and count as the same call over a
+    CPU mesh (the plain twins); None picks 'cuda_shear' on the card and
+    'shear' on the CPU."""
+    from image_processor_pipeline_tpu_torch.parallel.mesh import (
+        make_mesh, sharded_augment_step)
+
+    images, xywhn, seeds = _mesh_chain_inputs()
+    kernels.reset_launch_counts()
+    out, count = sharded_augment_step(
+        make_mesh(devices=[cuda_device] * 2), crop=64, rotation=rotation)(
+        torch.as_tensor(images, device=cuda_device), xywhn, seeds)
+    assert kernels.launch_counts[kernel] == 2
+    assert out.device == cuda_device and count.device == cuda_device
+    want, want_count = sharded_augment_step(
+        make_mesh(devices=["cpu"] * 2), crop=64, rotation=rotation)(
+        images, xywhn, seeds)
+    assert torch.equal(out.cpu(), want)
+    assert int(count) == int(want_count) == 8
+
+
+@pytest.mark.cuda
+def test_engine_mesh_on_card_writes_the_cpu_files(cuda_device, tmp_path):
+    """FusedChain([Rotate(shear), Flip, Enhance]) with a two-entry mesh on
+    the card, n=11 (no multiple of 2): every batch launches the rotation
+    kernel once a shard, and the files equal the CPU run's without a
+    mesh, byte for byte."""
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch import ProcessingStep
+    from image_processor_pipeline_tpu_torch.parallel.mesh import make_mesh
+    from image_processor_pipeline_tpu_torch.transforms.fused import (
+        Enhance, Flip, FusedChain, Rotate)
+
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(7)
+    for i in range(11):
+        arr = rng.integers(0, 256, (40 + (i % 3), 52, 3), np.uint8)
+        Image.fromarray(arr).save(src / f"im{i}.png")
+    steps = {}
+    for tag, device, mesh in (
+            ("cpu", "cpu", None),
+            ("card", cuda_device, make_mesh(devices=[cuda_device] * 2))):
+        steps[tag] = ProcessingStep(
+            "chain", FusedChain([Rotate(method="shear"), Flip(), Enhance()]),
+            input_dirs=[src], output_dirs=[tmp_path / tag], seed=99,
+            mesh=mesh, device=device, workers=2)
+        kernels.reset_launch_counts()
+        assert steps[tag].run(progress=False) == {"Success": 11}
+    assert kernels.launch_counts["shear_rotate_packed"] == \
+        2 * steps["card"].metrics.batches
+    got = {p.name: p.read_bytes() for p in sorted((tmp_path / "card").iterdir())}
+    want = {p.name: p.read_bytes() for p in sorted((tmp_path / "cpu").iterdir())}
+    assert got == want and len(got) == 11
+
+
+@pytest.mark.cuda
+def test_mesh_over_every_card_matches_the_cpu(cuda_device, tmp_path):
+    """A mesh over all the machine's cards (one here, or several on a
+    machine that has them): sharded_augment_step in both kernel modes and
+    an engine step with the default mesh (None: "auto" on a CUDA step)
+    give the CPU's bytes, each card launching its shard's kernel."""
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch import ProcessingStep
+    from image_processor_pipeline_tpu_torch.parallel.mesh import (
+        make_mesh, sharded_augment_step)
+    from image_processor_pipeline_tpu_torch.transforms.fused import (
+        Enhance, Flip, FusedChain, Rotate)
+
+    n = torch.cuda.device_count()
+    mesh = make_mesh()
+    assert mesh.shape["data"] == n
+    images, xywhn, seeds = _mesh_chain_inputs(B=4 * n, seed=13)
+    for rotation, kernel in (("cuda_shear", "shear_rotate_packed"),
+                             ("cuda_full", "augment_full")):
+        kernels.reset_launch_counts()
+        out, count = sharded_augment_step(mesh, crop=64, rotation=rotation)(
+            images, xywhn, seeds)
+        assert kernels.launch_counts[kernel] == n
+        assert out.device == torch.device("cuda", 0)
+        want, want_count = sharded_augment_step(
+            make_mesh(devices=["cpu"] * n), crop=64, rotation=rotation)(
+            images, xywhn, seeds)
+        assert torch.equal(out.cpu(), want)
+        assert int(count) == int(want_count)
+
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(5)
+    for i in range(4 * n + 3):
+        arr = rng.integers(0, 256, (40 + (i % 3), 52, 3), np.uint8)
+        Image.fromarray(arr).save(src / f"im{i}.png")
+    steps = {}
+    for tag, device in (("cpu", "cpu"), ("cards", "cuda")):
+        steps[tag] = ProcessingStep(
+            "chain", FusedChain([Rotate(method="shear"), Flip(), Enhance()]),
+            input_dirs=[src], output_dirs=[tmp_path / tag], seed=17,
+            device=device, workers=2)
+        kernels.reset_launch_counts()
+        assert steps[tag].run(progress=False) == {"Success": 4 * n + 3}
+    auto = steps["cards"]._resolve_mesh()
+    assert (auto is None) if n == 1 else (auto.shape["data"] == n)
+    assert kernels.launch_counts["shear_rotate_packed"] == \
+        n * steps["cards"].metrics.batches
+    got = {p.name: p.read_bytes() for p in sorted((tmp_path / "cards").iterdir())}
+    want = {p.name: p.read_bytes() for p in sorted((tmp_path / "cpu").iterdir())}
+    assert got == want and len(got) == 4 * n + 3
+
+
+@pytest.mark.cuda
+def test_hsv_tuner_on_card_matches_the_cpu(cuda_device, tmp_path):
+    """preview_hsv_mask computes on the card by default and gives the CPU's
+    arrays, byte for byte."""
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch.utils.hsv_tuner import (
+        preview_hsv_mask)
+
+    path = tmp_path / "im.png"
+    Image.fromarray(np.random.default_rng(5).integers(
+        0, 256, (96, 128, 3), dtype=np.uint8)).save(path)
+    for lower, upper in (((0, 0, 0), (180, 255, 120)),
+                         ((35, 60, 60), (85, 255, 255))):
+        got = preview_hsv_mask(path, lower, upper, show=False)
+        want = preview_hsv_mask(path, lower, upper, show=False, device="cpu")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert 0 < got[1].sum() < got[1].size

@@ -503,6 +503,12 @@ def test_sync_executor_and_pool_choice(monkeypatch):
     ({"options": {"device_encode": True}}, "device_encode")])
 def test_unported_options_raise_and_name_the_option(kwargs, named,
                                                    monkeypatch):
+    if named in ("mesh", "host_sharded", "trace_dir"):
+        # ported: the step keeps the option (tests/test_torch_parallel.py,
+        # test_torch_distributed.py and test_torch_cli.py run them)
+        step = ProcessingStep("s", SquareCropAroundBBox(), **kwargs)
+        assert getattr(step, named) == kwargs[named]
+        return
     if named in ("device_decode", "device_encode"):
         # ported: an explicit True is taken where the native IO engine is
         # built, and raises naming why where it is not
