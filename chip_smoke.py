@@ -13,7 +13,12 @@ canvases, and random shift vectors), drives the flagship chain
 cuda_full, cuda_shear and cuda_fused, and the batched rotation op on
 single-channel masks, checks each output against its plain twin on the
 card and that no main path took the rotation's direct gather or
-cuda_shear's torch crop, times each kernel's launch alone against its
+cuda_shear's torch crop, drives the chain kernel's other placements of
+the crop and the flip (the spellings cuda_full:pre, cuda_full:gath,
+cuda_full:i32crop, cuda_full: and cuda_full_ikc) at B=8 and 64, each
+launch against its plain twin on the card and the default cuda_full, and
+the chain's gather mode against the same mode on the CPU and against
+cuda_shear's footprint, times each kernel's launch alone against its
 bytes bound and its plain version, the chain kernel's two paths and
 cluster sizes and the rotation kernel's two paths in turns,
 and the chains with CUDA events, profiles one launch of each kernel and
@@ -23,7 +28,11 @@ CPU's and holds each chain kernel mode on the card against the same mode
 on the CPU over the angles that move, holds the probe kernel's four moves (utils/rev_probe.py) against
 torch.flip, torch.roll and clone, drives the probe's own entry point and
 times a kernel that does nothing (the launch-alone floor under the moves),
-and drives the engine: over a dataset of 640 x 480 PNGs with YOLO labels
+holds the engine's failure contract on the card (phase failure_contract:
+a FusedChain step with a probe fault, a truncated JPEG, transient and
+permanent save faults and every save failing; a crop step in a process of
+its own SIGKILLed with batches in flight, then resumed: each item once,
+the files those of an uninterrupted run), and drives the engine: over a dataset of 640 x 480 PNGs with YOLO labels
 made from a seed in a temporary directory, ProcessingPipeline A
 (SquareCropAroundBBox, then copy_img_with_labels) and B (RandomRotations
 with method="shear", which launches the rotation kernel, then
@@ -2177,6 +2186,329 @@ def native_compute_pipelines(root, dev, card, workers, imgs_dir, labels_dir):
             "phase_s": time.perf_counter() - t_phase}
 
 
+# ---- K1's placements and the chain's gather mode -------------------------
+
+#: the 'cuda_full' spellings of K1's placements -> (their plain twin's
+#: spelling, augment_fused_full's placement arguments for the launch alone,
+#: the canvas form the chain gives it: the uint8 image or pack_rgba's)
+PLACEMENTS = {
+    "cuda_full:pre": ("cuda_full:pre,interp",
+                      {"flips_in": "prologue", "in_kernel_crop": False},
+                      "u8"),
+    "cuda_full:gath": ("cuda_full:gath,interp",
+                       {"flips_in": "gather", "in_kernel_crop": False}, "u8"),
+    "cuda_full:i32crop": ("cuda_full:i32crop,interp",
+                          {"in_kernel_crop": False}, "packed"),
+    "cuda_full:": ("cuda_full:interp", {"in_kernel_crop": False}, "u8"),
+    "cuda_full_ikc": ("cuda_full:ikc,interp", {}, "packed"),
+}
+
+
+def k1_placements(chains, kernels, inputs, default_out, dev):
+    """Each of K1's placements of the crop and the flip as a main path:
+    AugmentChain(640) in the placement's spelling at each batch, its
+    launches read on their own (one a call), and each output held against
+    its plain twin on the card ('interp') and against the default
+    'cuda_full' output, byte for byte.  Returns the launches of them all."""
+    total = 0
+    for mode, (twin, _, _) in PLACEMENTS.items():
+        chain = chains.AugmentChain(640, rotation=mode, device=dev)
+        got, counts = drive(kernels, {"augment_full": len(inputs)}, lambda: {
+            B: chain(images, xywhn, seeds)
+            for B, (images, xywhn, seeds) in inputs.items()})
+        total += counts["augment_full"]
+        for B, (images, xywhn, seeds) in inputs.items():
+            check_equal(got[B], chains.augment_chain(
+                images, xywhn, seeds, rotation=twin),
+                f"K1 placement {mode} B={B}: launch != its plain twin {twin}")
+            check_equal(got[B], default_out[B],
+                        f"K1 placement {mode} B={B}: != cuda_full")
+            check_not_degenerate(got[B], f"{mode} B={B}")
+            print(f"K1 placement {mode!r} B={B}: one launch == its plain twin "
+                  f"{twin!r} on the card == the default 'cuda_full', byte for "
+                  f"byte")
+    return total
+
+
+def k1_placement_ms(augment, filt, dev, card, k1_ms, k1_bound_ms):
+    """Device ms of each placement's augment_fused_full call at S=512
+    (its torch crop, flip or gather and the K1 launch), against K1's own
+    launch and bound.  Returns {mode: {"B=8": ms, "B=64": ms}}."""
+    out = {}
+    for mode, (_, kw, form) in PLACEMENTS.items():
+        out[mode] = {}
+        for B in BATCHES:
+            u4, y0, x0, angles, prms, flips = kernel_inputs(640, 512, B,
+                                                            seed=B, dev=dev)
+            canvas = (u4.view(torch.int32)[..., 0] if form == "packed"
+                      else u4[..., :3].contiguous())
+            shifts = augment._shifts(angles, 512)
+            ms = device_ms(lambda: augment.augment_fused_full(
+                canvas, y0, x0, None, prms, flips, *filt, crop=512,
+                shifts=shifts, **kw))
+            out[mode][f"B={B}"] = ms
+            print(f"K1 placement {mode!r} B={B} S=512 ({form} canvas, "
+                  f"{kw or 'in-kernel crop'}): {ms:.4f} device ms a call "
+                  f"(placement and launch), K1's default launch "
+                  f"{k1_ms[B]:.4f}, K1's bound {k1_bound_ms[B]:.4f}; card "
+                  f"{card}")
+    return out
+
+
+def gather_mode_on_card(chains, inputs, shear_out):
+    """The chain's 'gather' mode at 640 -> 512 at each batch: the card's
+    output == the CPU's, byte for byte (cos and sin come from the host),
+    and its footprint against 'cuda_shear' at IoU > 0.8 (the JAX bar).
+    Returns {B: IoU}."""
+    ious = {}
+    for B, (images, xywhn, seeds) in inputs.items():
+        got = chains.augment_chain(images, xywhn, seeds, rotation="gather")
+        check_equal(got.cpu(), chains.augment_chain(
+            images.cpu(), xywhn, seeds, rotation="gather"),
+            f"gather B={B}: card != CPU")
+        check_not_degenerate(got, f"gather B={B}")
+        nz_g = got[..., :3].sum(-1) > 0
+        nz_s = shear_out[B][..., :3].sum(-1) > 0
+        ious[B] = float((nz_g & nz_s).sum()) / max(1, int((nz_g | nz_s).sum()))
+        if not ious[B] > 0.8:
+            raise AssertionError(f"gather B={B}: footprint IoU {ious[B]:.4f} "
+                                 f"against cuda_shear")
+        print(f"chain gather B={B} 640->512: card == CPU, byte for byte; "
+              f"footprint IoU against cuda_shear {ious[B]:.4f} (> 0.8)")
+    return ious
+
+
+# ---- the engine's failure contract on the card ----------------------------
+
+# the SIGKILL + resume check: a crop step on the card over this many small
+# PNGs, each save slowed by this many seconds
+RESUME_ITEMS = 120
+RESUME_SAVE_S = 0.05
+RESUME_WORKER = """
+import sys, time
+sys.path.insert(0, {repo!r})
+from pathlib import Path
+from image_processor_pipeline_tpu_torch import ProcessingStep
+from image_processor_pipeline_tpu_torch.transforms import SquareCropAroundBBox
+
+
+class SlowSaves(SquareCropAroundBBox):
+    max_batch = 8
+
+    def save_item(self, out, item, output_dirs, options):
+        time.sleep({save_s!r})
+        return super().save_item(out, item, output_dirs, options)
+
+
+root = Path({root!r})
+step = ProcessingStep(
+    "crop", SlowSaves(), input_dirs=[root / "imgs", root / "labels"],
+    output_dirs=[root / "out" / "imgs", root / "out" / "labels"],
+    pairing_method="zip", save_log=True, resume=True, seed=4,
+    device={device!r}, workers=4)
+print("READY", flush=True)
+step.run(progress=False)
+print("FINISHED", flush=True)
+"""
+
+
+def write_resume_dataset(root, n, seed):
+    """``n`` RGB PNGs of 24 x 32 or 32 x 24 with one YOLO box each."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    (root / "imgs").mkdir(parents=True)
+    (root / "labels").mkdir()
+    for i in range(n):
+        h, w = (24, 32) if i % 2 else (32, 24)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+            root / "imgs" / f"im_{i:03d}.png")
+        (root / "labels" / f"im_{i:03d}.txt").write_text(
+            f"{i % 5} 0.5 0.5 {rng.uniform(0.1, 0.4):.6f} "
+            f"{rng.uniform(0.1, 0.4):.6f}\n")
+
+
+def sigkill_then_resume(root, dev):
+    """A device step on the card in a process of its own, SIGKILLed once
+    its report shows 0 < done < RESUME_ITEMS, then run again with
+    resume=True: the report holds each input once, all Success, the rerun
+    says it skips, and the files equal an uninterrupted run's on the card,
+    byte for byte.  Returns what it saw."""
+    import signal
+
+    from image_processor_pipeline_tpu_torch import ProcessingStep
+    from image_processor_pipeline_tpu_torch.transforms import (
+        SquareCropAroundBBox)
+
+    run = root / "run"
+    write_resume_dataset(run, RESUME_ITEMS, 9)
+    script = RESUME_WORKER.format(repo=str(REPO), root=str(run),
+                                  save_s=RESUME_SAVE_S, device=str(dev))
+    report = run / "out" / "crop.json"
+    proc = subprocess.Popen([sys.executable, "-c", script], text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        if "READY" not in proc.stdout.readline():
+            raise AssertionError("resume worker did not start")
+        deadline = time.monotonic() + 120
+        while not report.is_file():
+            if proc.poll() is not None:
+                raise AssertionError("resume worker ended before a flush:\n"
+                                     + proc.stdout.read()[-2000:])
+            if time.monotonic() > deadline:
+                raise AssertionError("resume worker wrote no report in time")
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    partial = json.loads(report.read_text())
+    done = {e["inputs"][0] for e in partial if e["status"] == "Success"}
+    if not 0 < len(done) < RESUME_ITEMS:
+        raise AssertionError(f"killed with {len(done)} items done")
+    print(f"failure_contract: SIGKILL with batches in flight: the report is "
+          f"valid JSON with {len(done)} of {RESUME_ITEMS} items done")
+    again = subprocess.run([sys.executable, "-c", script], text=True,
+                           capture_output=True, timeout=300)
+    if again.returncode != 0:
+        raise AssertionError(f"resume run exited {again.returncode}:\n"
+                             f"{(again.stdout + again.stderr)[-3000:]}")
+    if "resume — skipping" not in again.stdout:
+        raise AssertionError("the resume run did not say it skips")
+    skipped = [line for line in again.stdout.splitlines()
+               if "resume — skipping" in line]
+    print(f"failure_contract: the resume run printed {skipped[0].strip()!r}")
+    final = json.loads(report.read_text())
+    inputs = [e["inputs"][0] for e in final]
+    if len(final) != RESUME_ITEMS or len(set(inputs)) != RESUME_ITEMS \
+            or any(e["status"] != "Success" for e in final):
+        raise AssertionError(f"resumed report: {len(final)} entries, "
+                             f"{len(set(inputs))} inputs, statuses "
+                             f"{sorted({e['status'] for e in final})}")
+    print(f"failure_contract: the report holds {RESUME_ITEMS} entries, all "
+          f"Success, each input once")
+    clean = root / "clean"
+    ProcessingStep(
+        "crop", SquareCropAroundBBox(), input_dirs=[run / "imgs",
+                                                    run / "labels"],
+        output_dirs=[clean / "imgs", clean / "labels"], pairing_method="zip",
+        seed=4, device=dev, workers=4).run(progress=False)
+    for sub in ("imgs", "labels"):
+        got = {p.name: p.read_bytes()
+               for p in sorted((run / "out" / sub).iterdir())}
+        want = {p.name: p.read_bytes() for p in sorted((clean / sub).iterdir())}
+        if len(want) != RESUME_ITEMS or got != want:
+            raise AssertionError(f"resumed {sub} != an uninterrupted run's "
+                                 f"({len(got)} against {len(want)} files)")
+    print(f"failure_contract: the resumed files == an uninterrupted card "
+          f"run's, byte for byte ({RESUME_ITEMS} crops and labels)")
+    return {"done_at_kill": len(done), "items": RESUME_ITEMS}
+
+
+def failure_contract(dev):
+    """The engine's failure contract on the card (tests/test_engine_chaos.py
+    and tests/test_crash_resume.py): a FusedChain([Enhance()]) step over 8
+    JPEGs with a probe fault, a truncated JPEG, a transient save fault
+    with retries=1, a permanent one with retries=2 and every save failing;
+    then SIGKILL and resume of a crop step.  Each check's outcome on its
+    own line; any failure raises.  Returns the phase's numbers."""
+    from collections import Counter
+
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch import ProcessingStep
+    from image_processor_pipeline_tpu_torch.transforms.fused import (
+        Enhance, FusedChain)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ipp_failure_") as tmp:
+        root = Path(tmp)
+        rng = np.random.default_rng(42)
+        imgs = root / "imgs"
+        imgs.mkdir()
+        for i in range(8):
+            h, w = int(rng.integers(50, 90)), int(rng.integers(50, 90))
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+                imgs / f"im{i}.jpg")
+        attempts = Counter()
+
+        def stem(item):
+            return Path(item["_args"][0]).stem
+
+        class ProbeFault(FusedChain):
+            def probe_item(self, inputs, options):
+                if Path(inputs[0]).stem == "im3":
+                    raise RuntimeError("injected probe fault")
+                return super().probe_item(inputs, options)
+
+        class TransientSave(FusedChain):
+            def save_item(self, out, item, output_dirs, options):
+                attempts[stem(item)] += 1
+                if stem(item) == "im2" and attempts["im2"] == 1:
+                    raise IOError("injected transient save fault")
+                return super().save_item(out, item, output_dirs, options)
+
+        class PermanentSave(FusedChain):
+            def save_item(self, out, item, output_dirs, options):
+                if stem(item) == "im2":
+                    raise IOError("injected permanent save fault")
+                return super().save_item(out, item, output_dirs, options)
+
+        class AlwaysFails(FusedChain):
+            def save_item(self, out, item, output_dirs, options):
+                raise RuntimeError("injected")
+
+        def run(tag, transform, src=imgs, **kw):
+            step = ProcessingStep(
+                "chaos", transform([Enhance()]), input_dirs=[src],
+                output_dirs=[root / tag], pairing_method="one_input", seed=3,
+                device=dev, save_log=True, **kw)
+            return step, step.run(progress=False)
+
+        _, c = run("probe", ProbeFault)
+        if c != Counter(Success=7, Error=1):
+            raise AssertionError(f"probe fault: {dict(c)}")
+        print(f"failure_contract: probe fault on im3: {dict(c)} (7 Success, "
+              f"1 Error)")
+        cut = root / "cut"
+        shutil.copytree(imgs, cut)
+        data = (cut / "im5.jpg").read_bytes()
+        (cut / "im5.jpg").write_bytes(data[: len(data) // 2])
+        _, c = run("truncated", FusedChain, src=cut)
+        if c["Success"] + c["Error"] != 8 or c["Success"] < 7:
+            raise AssertionError(f"truncated JPEG: {dict(c)}")
+        print(f"failure_contract: one JPEG cut in half: {dict(c)} (Success "
+              f"+ Error = 8, Success >= 7)")
+        _, c = run("transient", TransientSave, retries=1)
+        if c != Counter(Success=8) or attempts["im2"] != 2:
+            raise AssertionError(f"transient save fault: {dict(c)}, "
+                                 f"attempts {dict(attempts)}")
+        print(f"failure_contract: transient save fault, retries=1: "
+              f"{dict(c)}, im2 saved on attempt {attempts['im2']}")
+        step, c = run("permanent", PermanentSave, retries=2)
+        entries = json.loads(step._report_path().read_text())
+        bad = [e for e in entries if e["status"] == "Error"]
+        if c != Counter(Success=7, Error=1) or len(bad) != 1 \
+                or "injected permanent save fault" not in bad[0][
+                    "error_message"] or bad[0]["outputs"] is not None:
+            raise AssertionError(f"permanent save fault: {dict(c)}, report "
+                                 f"errors {bad}")
+        print(f"failure_contract: permanent save fault, retries=2: "
+              f"{dict(c)}; the report's entry says "
+              f"{bad[0]['error_message']!r} with outputs null")
+        _, c = run("all", AlwaysFails)
+        if c != Counter(Error=8):
+            raise AssertionError(f"every save failing: {dict(c)}")
+        print(f"failure_contract: every save failing: {dict(c)}, the run "
+              f"completes")
+        resume = sigkill_then_resume(root, dev)
+    seconds = time.perf_counter() - t_phase
+    print(f"failure_contract phase: {seconds:.1f} s")
+    return dict(resume, seconds=seconds)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2440,8 +2772,16 @@ def main() -> None:
                   f"card")
         print(f"main path rotate_square_shear_batch masks ({batch}, 512, 512,"
               f" 1): 3 calls == geometry.rotate_square_shear on the card")
+    # K1's placements of the crop and the flip, each a main path read on
+    # its own, and the chain's gather mode against the CPU
+    placement_launches = k1_placements(
+        chains, kernels, inputs,
+        {B: outputs["cuda_full"][B][0] for B in BATCHES}, dev)
+    launches["augment_full"] += placement_launches
+    gather_iou = gather_mode_on_card(
+        chains, inputs, {B: outputs["cuda_shear"][B][0] for B in BATCHES})
     print(f"main-path kernel launches (each path read on its own): "
-          f"{launches}")
+          f"{launches}, K1's placements {placement_launches} of them")
     del outputs, rotated
     torch.cuda.synchronize()
 
@@ -2529,6 +2869,11 @@ def main() -> None:
                 raise AssertionError(f"{name} B=64: the tiled path is not "
                                      f"faster than the direct path")
 
+    placement_ms = k1_placement_ms(
+        augment, filt, dev, card,
+        {B: dev_ms["augment_full", B] for B in BATCHES},
+        {B: bound_ms["augment_full", B] for B in BATCHES})
+
     # ---- one launch, no memset; the chain's device work --------------------
     def traced_calls(fn, calls):
         """The device activities of ``calls`` calls of ``fn`` in one warmed
@@ -2597,7 +2942,7 @@ def main() -> None:
 
     for batch, (images, xywhn, seeds) in inputs.items():
         for mode in ("cuda_full", "full_reference", "cuda_shear", "shear",
-                     "cuda_fused", "fused_reference"):
+                     "cuda_fused", "fused_reference", "gather"):
             per_call = time_calls(lambda i: chains.augment_chain(
                 images, xywhn, seeds + i * batch, rotation=mode), calls=20)
             print(f"chain {mode} B={batch} 640->512: "
@@ -2675,6 +3020,9 @@ def main() -> None:
           + ", ".join(f"{name} {p1_floor_ms / ms:.3f}"
                       for name, ms in p1_ms.items())
           + f"; card {card}")
+
+    # ---- the engine's failure contract on the card -------------------------
+    failure = failure_contract(dev)
 
     # ---- the engine: pipelines A and B over a directory of files ----------
     import PIL
@@ -2877,7 +3225,12 @@ def main() -> None:
         "device_ms": {f"B={B}": dev_ms[name, B] for B in BATCHES},
         "bound_ms_by_batch": {f"B={B}": bound_ms[name, B] for B in BATCHES},
         "plain_ms_by_batch": {f"B={B}": plain_ms[name, B] for B in BATCHES},
-    } | ({"engine": engine_kernel, "fused_chain": stage_kernel,
+    } | ({"placements": {"launches": placement_launches,
+                         "device_ms": placement_ms},
+          "gather_iou": {f"B={B}": iou for B, iou in gather_iou.items()},
+          "failure_contract": failure}
+         if name == "augment_full" else {})
+      | ({"engine": engine_kernel, "fused_chain": stage_kernel,
           "video_chain": video_kernel, "codec": codec,
           "entry_points": entry, "native_compute": native} | fanout_kernel
          if name == "shear_rotate_packed" else {})

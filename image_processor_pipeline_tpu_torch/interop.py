@@ -5,8 +5,9 @@ angles, flip codes, enhance parameters) and the static HSV filter stack.
 ``draws_from_jax`` takes the JAX package's arrays as numpy and returns the
 port's tensors; ``shifts_from_jax`` does the same for the rotation's shift
 vectors, so a kernel can be held against the JAX package given its own
-vectors; ``filter_stack`` rounds the filter bounds the way cv2.inRange and
-ops/pallas/augment.py:602-605 do.  Nothing here imports jax.
+vectors, and ``cos_sin_from_jax`` for ``geometry.rotate_fixed``'s
+(cos, sin) (F17); ``filter_stack`` rounds the filter bounds the way
+cv2.inRange and ops/pallas/augment.py:602-605 do.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ def shifts_from_jax(quad, sh1, sh2, device="cpu"):
     as int32 tensors on ``device``, in the form the port's rotations take."""
     return tuple(torch.as_tensor(np.asarray(a).astype(np.int32),
                                  device=device) for a in (quad, sh1, sh2))
+
+
+def cos_sin_from_jax(cos, sin, device="cpu"):
+    """The JAX package's float32 (cos [B], sin [B]) of the rotation angles
+    (``jnp.cos(jnp.deg2rad(a))``) as tensors on ``device``, in the form
+    ``geometry.rotate_fixed`` takes as ``cos_sin``."""
+    return tuple(torch.as_tensor(np.array(a, np.float32).reshape(-1),
+                                 device=device) for a in (cos, sin))
 
 
 def _sat(v) -> int:

@@ -22,11 +22,24 @@ in the JAX package whose output it equals:
   'cuda_fused'      crop, then flip → rotate → mask → enhance in one
                     hand-written CUDA kernel launch ('pallas_fused'); the
                     plain twin on a CPU tensor;
-  'fused_reference' the plain torch twin of that kernel ('fused_reference').
+  'fused_reference' the plain torch twin of that kernel ('fused_reference');
+  'gather'          crop → rotate_fixed (the direct nearest inverse map,
+                    one index gather) → flip → mask → enhance ('gather');
+  'cuda_full_ikc'   'cuda_full' from the packed int32 canvas
+                    ('pallas_full_ikc');
+  'cuda_full:<flags>'  the placements of the kernel's crop and flip
+                    ('pallas_full:<flags>'): the crop cut in torch first
+                    unless 'ikc'; 'pre' flips the input (prologue), 'gath'
+                    cuts and flips it in one index pass, 'i32crop' cuts
+                    the packed int32 canvas, 'ikc' leaves the crop to the
+                    kernel, 'interp' runs the plain twin in the kernel's
+                    place (Pallas interpret mode's counterpart).
 
-The 'full' and 'fused' modes flip before they rotate and the two 'shear'
-modes rotate before they flip, so for the same seeds the first four give
-one image and the two 'shear' modes another.
+The 'full' and 'fused' modes flip before they rotate and the 'shear' and
+'gather' modes rotate before they flip, so for the same seeds the 'full'
+and 'fused' modes give one image, the two 'shear' modes another and
+'gather' a third.  Every 'cuda_full' spelling gives the bytes of
+'cuda_full'.
 """
 
 from __future__ import annotations
@@ -45,6 +58,8 @@ from image_processor_pipeline_tpu_torch.ops.augment import (
     augment_full_reference,
     augment_fused,
     augment_fused_full,
+    crop_flip_gather,
+    input_flip_bits,
     pack_rgba,
 )
 from image_processor_pipeline_tpu_torch.ops.rotate import shear_rotate_crop
@@ -58,7 +73,48 @@ _FILTER_UPPERS = ((85.0, 255.0, 255.0), (140.0, 230.0, 230.0))
 _FILTER_ZONES = ((0, 0, 0, 0), (16, 16, 8, 8))
 
 MODES = ("cuda_full", "full_reference", "shear", "cuda_shear", "cuda_fused",
-         "fused_reference")
+         "fused_reference", "gather", "cuda_full_ikc")
+#: the flags of a 'cuda_full:<flags>' spelling
+FULL_FLAGS = ("pre", "gath", "ikc", "i32crop", "interp")
+# flags of the JAX spelling that time a TPU pass the kernel here has not
+_TPU_PROBES = {
+    "noepi": "the XLA flip epilogue (the kernel walks back through the "
+             "flip itself)",
+    "nosmem": "the SMEM scalar prefetch of the item rows"}
+
+
+def full_flags(rotation: str):
+    """The flag set of a 'cuda_full:<flags>' or 'cuda_full_ikc' spelling
+    (None for any other mode), checked: an unknown flag raises, 'noepi'
+    and 'nosmem' raise as TPU timing probes, and 'gath' with 'ikc' or
+    'i32crop' raises (those prologues never apply the flip gather, so the
+    user flips would be dropped), as in the JAX chain."""
+    if rotation == "cuda_full_ikc":
+        return {"ikc"}
+    if not rotation.startswith("cuda_full:"):
+        return None
+    flags = {f for f in rotation.split(":", 1)[1].split(",") if f}
+    for flag in sorted(flags):
+        if flag in _TPU_PROBES:
+            raise ValueError(
+                f"flag {flag!r} of {rotation!r} is a TPU timing probe: it "
+                f"drops {_TPU_PROBES[flag]}; there is no such pass to drop "
+                f"here")
+        if flag not in FULL_FLAGS:
+            raise ValueError(f"unknown flag {flag!r} in {rotation!r}; "
+                             f"choose from {FULL_FLAGS}")
+    if "gath" in flags and flags & {"ikc", "i32crop"}:
+        raise ValueError("'gath' cannot combine with 'ikc'/'i32crop'")
+    return flags
+
+
+def check_mode(rotation: str) -> None:
+    """Raise ValueError unless ``rotation`` is a mode of MODES or a valid
+    'cuda_full:<flags>' spelling."""
+    if rotation not in MODES and full_flags(rotation) is None:
+        raise ValueError(f"unknown rotation mode {rotation!r}; choose from "
+                         f"{MODES} or 'cuda_full:<flags>' with flags from "
+                         f"{FULL_FLAGS}")
 
 
 def _seeds(seeds):
@@ -126,9 +182,7 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
     """Batched chain: [B, H, W, 3|4] uint8 → [B, crop, crop, 4] uint8 RGBA
     on the images' device.  xywhn: [B, 4] normalized bbox; seeds: [B]
     non-negative integers (host draws)."""
-    if rotation not in MODES:
-        raise ValueError(f"unknown rotation mode {rotation!r}; "
-                         f"choose from {MODES}")
+    check_mode(rotation)
     dev = images.device
     y0, x0, angles = _crop_params(images.shape[1:3], xywhn, seeds, crop)
     flips, prms = _flip_and_params(seeds)
@@ -148,6 +202,9 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
                                       prms, flips, _FILTER_LOWERS,
                                       _FILTER_UPPERS, _FILTER_ZONES,
                                       crop=crop, shifts=shifts)
+    flags = full_flags(rotation)
+    if flags is not None:
+        return _full_placed(images, y0, x0, shifts, prms, flips, crop, flags)
     if rotation == "cuda_shear":
         # the kernel reads its crop from the canvas: no torch crop index
         rotated = shear_rotate_crop(images.contiguous(), y0, x0, *shifts,
@@ -159,8 +216,37 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
             else augment_finish_reference
         return fn(cropped, None, prms, _FILTER_LOWERS, _FILTER_UPPERS,
                   _FILTER_ZONES, flips=flips, shifts=shifts)
+    if rotation == "gather":
+        # cos and sin from the host's angles too: every device gets the
+        # same ones (F17)
+        rotated = geometry.rotate_fixed(
+            cropped, crop, crop, cos_sin=geometry.rotation_cos_sin(angles))
+        return _finish_one(rotated, flips, prms, crop)
     return _finish_one(geometry.rotate_square_shear_by(cropped, *shifts),
                        flips, prms, crop)
+
+
+def _full_placed(images, y0, x0, shifts, prms, flips, crop, flags):
+    """The 'cuda_full:<flags>' spellings, as the JAX chain prepares its
+    canvas for each 'pallas_full:<flags>': the packed int32 canvas for
+    'ikc' and 'i32crop', the crop and flip cut in one uint8 index pass for
+    'gath' (the kernel then told the flips are in its input), else the
+    uint8 crop cut in torch first."""
+    if flags & {"ikc", "i32crop"}:
+        canvas = pack_rgba(images)
+    elif "gath" in flags:
+        canvas = crop_flip_gather(images, y0, x0,
+                                  *input_flip_bits(shifts[0], flips), crop)
+        y0, x0 = torch.zeros_like(y0), torch.zeros_like(x0)
+    else:
+        canvas = _crop_one(images, y0, x0, crop)
+        y0, x0 = torch.zeros_like(y0), torch.zeros_like(x0)
+    fn = augment_full_reference if "interp" in flags else augment_fused_full
+    return fn(canvas.contiguous(), y0, x0, None, prms, flips, _FILTER_LOWERS,
+              _FILTER_UPPERS, _FILTER_ZONES, crop=crop, shifts=shifts,
+              flips_in=("prologue" if "pre" in flags
+                        else "external" if "gath" in flags else "epilogue"),
+              in_kernel_crop="ikc" in flags)
 
 
 class AugmentChain(nn.Module):
@@ -178,9 +264,7 @@ class AugmentChain(nn.Module):
         super().__init__()
         if input_size < CROP:
             raise ValueError(f"input_size must be >= {CROP}")
-        if rotation not in MODES:
-            raise ValueError(f"unknown rotation mode {rotation!r}; "
-                             f"choose from {MODES}")
+        check_mode(rotation)
         self.input_size = input_size
         self.rotation = rotation
         self.device = torch.device(device)

@@ -570,6 +570,55 @@ def rotate_square_shear(img, angles):
     return rotate_square_shear_by(img, *shear_params(angles, img.shape[1]))
 
 
+def rotation_cos_sin(angles):
+    """(cos, sin) of ``angles`` [B] degrees as float32 numpy arrays, made
+    on the host: the float32 radians of ``jnp.deg2rad``, then cos and sin
+    in float64 rounded to float32.  The same values reach every device, so
+    no device's cosf/sinf decides a pixel; XLA's float32 cos/sin differ
+    from them by one ulp on about 1.3 % of angles (F17)."""
+    theta = np.asarray(angles, np.float32).reshape(-1) \
+        * np.float32(_DEG2RAD)
+    theta = theta.astype(np.float64)
+    return np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
+
+
+def rotate_fixed(img, h, w, angles=None, cos_sin=None):
+    """Rotate each image [B, H, W, C] CCW by its angle about the centre of
+    its valid region [0:h, 0:w], with no canvas expansion (PIL
+    ``rotate(angle, expand=False)``): nearest sampling at pixel centres,
+    the floor of the source coordinate, 0 where the source leaves the
+    region, then ``apply_mask``.  The twin of the JAX ``rotate_fixed``
+    vmapped over the batch.
+
+    ``angles``: [B] degrees, turned into (cos, sin) by
+    ``rotation_cos_sin``; or ``cos_sin``: ([B], [B]) float32 to use
+    instead (``interop.cos_sin_from_jax``).  The coordinates are separate
+    float32 multiplies and adds in the JAX function's order (no fused
+    multiply-add moves a floor); the sampling is one index gather.
+    """
+    B, H, W, _ = img.shape
+    dev = img.device
+    if cos_sin is None:
+        cos_sin = rotation_cos_sin(angles)
+    cos, sin = (torch.as_tensor(np.array(v, np.float32).reshape(-1))
+                .to(dev).expand(B).reshape(B, 1, 1) for v in cos_sin)
+    hf = _per_item(h, B, dev, torch.float32).reshape(B, 1, 1)
+    wf = _per_item(w, B, dev, torch.float32).reshape(B, 1, 1)
+    cy, cx = hf / 2, wf / 2
+    oy = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None] + 0.5
+    ox = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :] + 0.5
+    dy, dx = oy - cy, ox - cx
+    sx = cos * dx - sin * dy + cx
+    sy = sin * dx + cos * dy + cy
+    inb = (sx >= 0) & (sx < wf) & (sy >= 0) & (sy < hf)
+    ix = torch.floor(sx).to(torch.int64).clamp(0, W - 1)
+    iy = torch.floor(sy).to(torch.int64).clamp(0, H - 1)
+    b = torch.arange(B, device=dev).reshape(B, 1, 1)
+    out = torch.where(inb[..., None], img[b, iy, ix],
+                      torch.zeros((), dtype=img.dtype, device=dev))
+    return apply_mask(out, h, w)
+
+
 # ---------------------------------------------------------------------------
 # separable resize: Pillow's fixed-point resample (Resample.c)
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ import torch
 
 from image_processor_pipeline_tpu.models import chains as jchains
 from image_processor_pipeline_tpu.ops import geometry as jgeo
-from image_processor_pipeline_tpu_torch import kernels
+from image_processor_pipeline_tpu_torch import interop, kernels
 from image_processor_pipeline_tpu_torch.models import chains as tchains
 from image_processor_pipeline_tpu_torch.ops import geometry as tgeo
 
@@ -172,14 +172,24 @@ def test_augment_chain_module_matches_jax_640():
 
 
 def test_chain_rejects_bad_configuration():
+    """What is left to refuse: a canvas smaller than the crop, an unknown
+    mode, the TPU timing probes 'noepi' and 'nosmem' (named, with why) and
+    'gath' with 'ikc' or 'i32crop', from the module and from the
+    function."""
     with pytest.raises(ValueError):
         tchains.AugmentChain(input_size=500, device="cpu")
-    with pytest.raises(ValueError):
-        tchains.AugmentChain(rotation="pallas_full", device="cpu")
     images, xywhn, seeds = chain_inputs(1, 96, seed=0)
-    with pytest.raises(ValueError):
-        tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
-                              "gather")
+    for bad, match in (("pallas_full", "unknown rotation mode"),
+                       ("cuda_full:noepi", "'noepi'.*TPU timing probe"),
+                       ("cuda_full:nosmem", "'nosmem'.*TPU timing probe"),
+                       ("cuda_full:gath,ikc", "'gath' cannot combine"),
+                       ("cuda_full:gath,i32crop", "'gath' cannot combine"),
+                       ("cuda_full:pre,bogus", "unknown flag 'bogus'")):
+        with pytest.raises(ValueError, match=match):
+            tchains.AugmentChain(rotation=bad, device="cpu")
+        with pytest.raises(ValueError, match=match):
+            tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                                  bad)
 
 
 def test_port_never_imports_jax():
@@ -219,7 +229,9 @@ def test_cuda_shear_reads_the_canvas_without_a_crop_index(monkeypatch,
     assert crops == [1] and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mode", tchains.MODES)
+# 'gather' makes no shift vectors: its cos and sin come from the host's
+# angles instead (test_gather_takes_cos_sin_from_the_host_angles)
+@pytest.mark.parametrize("mode", [m for m in tchains.MODES if m != "gather"])
 def test_chain_takes_its_shift_vectors_from_the_host_angles(monkeypatch,
                                                             mode):
     """F6: every mode computes shear_params once, from the CPU tensor of
@@ -240,6 +252,157 @@ def test_chain_takes_its_shift_vectors_from_the_host_angles(monkeypatch,
     np.testing.assert_array_equal(a.numpy(), angles)
     monkeypatch.setattr(tgeo, "shear_params", real)
     twin = {"cuda_full": "full_reference", "cuda_fused": "fused_reference",
-            "cuda_shear": "shear"}.get(mode, mode)
+            "cuda_shear": "shear",
+            "cuda_full_ikc": "full_reference"}.get(mode, mode)
     assert torch.equal(got, tchains.augment_chain(
         torch.as_tensor(images), xywhn, seeds, 64, twin))
+
+
+# -- the 'gather' mode: rotate_fixed, the direct nearest inverse map ----------
+
+def jax_cos_sin(angles):
+    """XLA's float32 (cos, sin) of the JAX rotate_fixed, as numpy."""
+    theta = jnp.deg2rad(jnp.asarray(angles, jnp.float32))
+    return np.asarray(jnp.cos(theta)), np.asarray(jnp.sin(theta))
+
+
+@pytest.mark.parametrize("S,angle", [(64, a) for a in (
+    17.0, 45.0, 90.0, 133.0, 180.0, 260.0, 359.0)] + [(768, 44.0)])
+def test_rotate_fixed_matches_jax(S, angle):
+    """tests/test_chains.py:18-61's angles and sizes: byte for byte against
+    the eager JAX rotate_fixed given XLA's cos/sin, and with the host's
+    own cos/sin wherever they are XLA's (else within F17's bound)."""
+    rng = np.random.default_rng(int(angle) + S)
+    img = rng.integers(0, 256, (S, S, 3), np.uint8)
+    want = np.asarray(jgeo.rotate_fixed(jnp.asarray(img), S, S, angle))
+    batch = torch.as_tensor(img[None])
+    cs = interop.cos_sin_from_jax(*jax_cos_sin([angle]))
+    got = tgeo.rotate_fixed(batch, S, S, cos_sin=cs)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    own = tgeo.rotate_fixed(batch, S, S, [angle])[0].numpy()
+    if all(a == b for a, b in zip(tgeo.rotation_cos_sin([angle]),
+                                  jax_cos_sin([angle]))):
+        np.testing.assert_array_equal(own, want)
+    else:
+        assert (own != want).any(-1).mean() <= F17_BOUND
+
+
+#: F17: pixels that the host's cos/sin move against XLA's, as a share of
+#: all pixels over 20,000 angles at S=512 (measured 1.88e-7)
+F17_BOUND = 1e-6
+
+
+def test_rotate_fixed_f17_rate_of_moved_pixels():
+    """F17: over 20,000 angles from uniform(1, 359), the host's float32
+    cos/sin differ from XLA's on some angles; the rotation given each pair
+    moves at most F17_BOUND of the pixels at S=512 (only those angles can
+    move one).  Each pixel of the probe carries its own index."""
+    S, n = 512, 20_000
+    angles = np.random.default_rng(17).uniform(1, 359, n).astype(np.float32)
+    hc, hs = tgeo.rotation_cos_sin(angles)
+    jc, js = jax_cos_sin(angles)
+    differ = np.flatnonzero((hc != jc) | (hs != js))
+    assert 0 < len(differ) < 0.05 * n, len(differ)
+    probe = torch.arange(1, S * S + 1, dtype=torch.int32).reshape(1, S, S, 1)
+    moved = 0
+    for i in range(0, len(differ), 64):
+        k = differ[i:i + 64]
+        batch = probe.expand(len(k), S, S, 1)
+        moved += int((tgeo.rotate_fixed(batch, S, S, cos_sin=(hc[k], hs[k]))
+                      != tgeo.rotate_fixed(batch, S, S,
+                                           cos_sin=(jc[k], js[k]))).sum())
+    assert moved / (n * S * S) <= F17_BOUND, (len(differ), moved)
+
+
+def test_gather_chain_matches_jax():
+    """The 'gather' chain against JAX's augment_chain(..., 'gather')
+    called eagerly: byte for byte given XLA's cos/sin, and with the host's
+    own on every item whose cos/sin are XLA's."""
+    images, xywhn, seeds = chain_inputs(4, 96, seed=21)
+    want = np.asarray(jchains.augment_chain(
+        jnp.asarray(images), jnp.asarray(xywhn), jnp.asarray(seeds), 64,
+        "gather"))
+    _, _, angles = tchains._crop_params(images.shape[1:3], xywhn, seeds, 64)
+    own = tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                                "gather").numpy()
+    same = np.all(np.stack(tgeo.rotation_cos_sin(angles))
+                  == np.stack(jax_cos_sin(angles)), axis=0)
+    np.testing.assert_array_equal(own[same], want[same])
+    real = tgeo.rotation_cos_sin
+    tgeo.rotation_cos_sin = lambda a: jax_cos_sin(a)
+    try:
+        got = tchains.augment_chain(torch.as_tensor(images), xywhn, seeds,
+                                    64, "gather")
+    finally:
+        tgeo.rotation_cos_sin = real
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_takes_cos_sin_from_the_host_angles(monkeypatch):
+    """'gather' computes (cos, sin) once, on the host, from the drawn
+    angles, and computes no shift vectors' rotation."""
+    images, xywhn, seeds = chain_inputs(4, 96, seed=22)
+    calls = []
+    real = tgeo.rotation_cos_sin
+    monkeypatch.setattr(tgeo, "rotation_cos_sin",
+                        lambda a: calls.append(np.asarray(a)) or real(a))
+    tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                          "gather")
+    _, _, angles = tchains._crop_params(images.shape[1:3], xywhn, seeds, 64)
+    assert len(calls) == 1
+    np.testing.assert_array_equal(calls[0], angles)
+
+
+def test_gather_footprint_agrees_with_shear():
+    """JAX's bar (tests/test_chains.py:122-136): the direct map and the
+    3-shear cover the same footprint, IoU > 0.8."""
+    images, xywhn, seeds = chain_inputs(4, 96, seed=23)
+    a = tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                              "shear").numpy()
+    b = tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                              "gather").numpy()
+    nz_a, nz_b = a[..., :3].sum(-1) > 0, b[..., :3].sum(-1) > 0
+    assert (nz_a & nz_b).sum() / max(1, (nz_a | nz_b).sum()) > 0.8
+
+
+# -- the 'cuda_full' spellings: K1's placements ------------------------------
+
+FULL_SPELLINGS = ("cuda_full_ikc", "cuda_full:", "cuda_full:pre",
+                  "cuda_full:gath", "cuda_full:i32crop",
+                  "cuda_full:i32crop,pre", "cuda_full:ikc",
+                  "cuda_full:pre,interp", "cuda_full:gath,interp",
+                  "cuda_full:ikc,interp", "cuda_full:interp")
+
+
+@pytest.mark.parametrize("mode", FULL_SPELLINGS)
+@pytest.mark.parametrize("channels", [3, 4])
+def test_full_spellings_give_the_bytes_of_cuda_full(mode, channels):
+    """Whichever flags, the bytes of the default 'cuda_full', on 3- and
+    4-channel canvases; nothing launches on the CPU."""
+    images, xywhn, seeds = chain_inputs(8, 96, seed=24)
+    if channels == 4:
+        alpha = np.full((*images.shape[:3], 1), 99, np.uint8)
+        images = np.concatenate([images, alpha], axis=-1)
+    images = torch.as_tensor(images)
+    kernels.reset_launch_counts()
+    got = tchains.augment_chain(images, xywhn, seeds, 64, mode)
+    assert all(n == 0 for n in kernels.launch_counts.values())
+    assert torch.equal(got, tchains.augment_chain(images, xywhn, seeds, 64,
+                                                  "cuda_full"))
+
+
+def test_chain_gath_flag_matches_jax():
+    """tests/test_chains.py:139-152: the 'gath' spelling, through the plain
+    twin ('interp'), equals JAX's 'pallas_full:gath,interp' (the Pallas
+    kernel in interpret mode) byte for byte."""
+    B = 4
+    rng = np.random.default_rng(4)
+    images = rng.integers(0, 256, (B, 96, 96, 3), np.uint8)
+    xy = np.tile(np.asarray([0.5, 0.5, 0.2, 0.2], np.float32), (B, 1))
+    seeds = np.arange(10, 10 + B, dtype=np.uint32)
+    want = np.asarray(jchains.augment_chain(images, xy, seeds, 64,
+                                            "pallas_full:gath,interp"))
+    for mode in ("cuda_full:gath,interp", "cuda_full:gath"):
+        got = tchains.augment_chain(torch.as_tensor(images), xy, seeds, 64,
+                                    mode)
+        assert_chain_equal(got.numpy(), want, f1_items(images, xy, seeds, 64))

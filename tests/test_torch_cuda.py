@@ -106,6 +106,40 @@ def test_chain_through_kernel_on_card(cuda_device, batch):
     assert torch.equal(got, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,launches", [
+    ("cuda_full_ikc", 1), ("cuda_full:", 1), ("cuda_full:pre", 1),
+    ("cuda_full:gath", 1), ("cuda_full:i32crop", 1),
+    ("cuda_full:i32crop,pre", 1), ("cuda_full:pre,interp", 0),
+    ("cuda_full:gath,interp", 0)])
+def test_each_placement_on_card_equals_cuda_full(cuda_device, mode,
+                                                 launches):
+    """Each 'cuda_full' spelling (K1's placements of the crop and the
+    flip) launches K1 once on the card, 'interp' never, and gives the
+    bytes of the default 'cuda_full', at 640 -> 512 with every flip."""
+    chain = chains.AugmentChain(input_size=640, device=cuda_device)
+    images, xywhn, seeds = chain.example_inputs(batch=8)
+    want = chain(images, xywhn, seeds)
+    kernels.reset_launch_counts()
+    got = chains.augment_chain(images, xywhn, seeds, rotation=mode)
+    assert kernels.launch_counts["augment_full"] == launches
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gather_chain_on_card_matches_the_cpu(cuda_device):
+    """'gather' on the card (one index gather, the host's cos/sin) equals
+    the same chain on the CPU, byte for byte."""
+    chain = chains.AugmentChain(input_size=640, rotation="gather",
+                                device=cuda_device)
+    images, xywhn, seeds = chain.example_inputs(batch=8)
+    got = chain(images, xywhn, seeds)
+    want = chains.augment_chain(images.cpu(), xywhn, seeds,
+                                rotation="gather")
+    assert torch.equal(got.cpu(), want)
+
+
 def rotate_args(B, S, C, dev):
     """Images and shift vectors covering the boundary angles (every quad)."""
     rng = np.random.default_rng(S * 10 + C)
@@ -1471,3 +1505,55 @@ def test_native_chain_step_writes_the_card_files(cuda_device, tmp_path):
     want = {p.name: p.read_bytes()
             for p in sorted((tmp_path / "card").iterdir())}
     assert got == want and len(got) == 10
+
+
+@pytest.mark.cuda
+def test_save_fault_on_a_card_batch_stays_contained(cuda_device, tmp_path):
+    """A permanent save fault on one item of a batch computed on the card
+    (saved behind its pinned copy and CUDA event) is that item's Error,
+    with its message and no outputs; the other items are saved, equal to
+    the CPU run's files, and a transient fault with retries=1 is retried
+    once."""
+    from collections import Counter
+    from pathlib import Path
+
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch import ProcessingStep
+    from image_processor_pipeline_tpu_torch.transforms.fused import (
+        Enhance, FusedChain)
+
+    rng = np.random.default_rng(42)
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    for i in range(8):
+        h, w = int(rng.integers(50, 90)), int(rng.integers(50, 90))
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+            imgs / f"im{i}.png")
+    attempts = Counter()
+
+    class Faulty(FusedChain):
+        def save_item(self, out, item, output_dirs, options):
+            stem = Path(item["_args"][0]).stem
+            attempts[stem] += 1
+            if stem == "im2" or (stem == "im5" and attempts[stem] == 1):
+                raise IOError(f"injected save fault on {stem}")
+            return super().save_item(out, item, output_dirs, options)
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        attempts.clear()
+        step = ProcessingStep(
+            "chaos", Faulty([Enhance()]), input_dirs=[imgs],
+            output_dirs=[tmp_path / device], pairing_method="one_input",
+            seed=3, device=device, retries=1)
+        assert step.run(progress=False) == Counter(Success=7, Error=1)
+        bad, = [e for e in step.process_logs if e["status"] == "Error"]
+        assert "injected save fault on im2" in bad["error_message"]
+        assert bad["outputs"] is None
+        assert attempts["im2"] == 2 and attempts["im5"] == 2
+        runs[device] = {p.name: np.asarray(Image.open(p))
+                        for p in sorted((tmp_path / device).iterdir())}
+    assert len(runs["cuda"]) == 7 and runs["cuda"].keys() == runs["cpu"].keys()
+    for name, pixels in runs["cuda"].items():
+        np.testing.assert_array_equal(pixels, runs["cpu"][name])

@@ -1,11 +1,12 @@
 """The port's engine (pipeline.py, pairing.py, transforms/base.py) on the
 CPU: pairing, seeds, the batch ladder, the JSON report, resume, overwrite,
 retries, per-item errors, independence of the batch size, and the options
-that are not ported and must raise.  The scenarios run through the JAX
-package's engine too (its jit path, ``native_compute=False``) over the same
-temporary dataset, and the port is held to it: the same status counts, the
-same report entries and the same files.  Exact comparisons throughout (file
-names, statuses, decoded pixels, label text); no tolerance is used."""
+ported last (kept, or raising naming a missing library).  The scenarios
+run through the JAX package's engine too (its jit path,
+``native_compute=False``) over the same temporary dataset, and the port is
+held to it: the same status counts, the same report entries and the same
+files.  Exact comparisons throughout (file names, statuses, decoded
+pixels, label text); no tolerance is used."""
 
 import json
 import random
@@ -492,7 +493,7 @@ def test_sync_executor_and_pool_choice(monkeypatch):
     assert tpipeline._engine_pool_cls(1, cpu) is not tpipeline._SyncExecutor
 
 
-# -- what is not ported raises ---------------------------------------------
+# -- the options ported last: kept, or raising naming what is missing ------
 
 @pytest.mark.parametrize("kwargs,named", [
     ({"mesh": "auto"}, "mesh"), ({"mesh": 4}, "mesh"),
@@ -501,8 +502,8 @@ def test_sync_executor_and_pool_choice(monkeypatch):
     ({"options": {"native_compute": True}}, "native_compute"),
     ({"options": {"device_decode": True}}, "device_decode"),
     ({"options": {"device_encode": True}}, "device_encode")])
-def test_unported_options_raise_and_name_the_option(kwargs, named,
-                                                   monkeypatch, tmp_path):
+def test_ported_options_are_kept_or_raise_naming_what_is_missing(
+        kwargs, named, monkeypatch, tmp_path):
     if named in ("mesh", "host_sharded", "trace_dir"):
         # ported: the step keeps the option (tests/test_torch_parallel.py,
         # test_torch_distributed.py and test_torch_cli.py run them)
@@ -554,7 +555,7 @@ def _spy_native(monkeypatch, cls):
     return ran
 
 
-def test_unported_option_set_after_construction_raises_at_run(
+def test_native_compute_set_after_construction_runs_the_twin(
         dataset, monkeypatch):
     # ported: set after construction, the run takes the native path and
     # writes the device path's files
@@ -586,7 +587,8 @@ def test_auto_and_false_mean_the_device_path(dataset, options):
 
 
 @pytest.mark.parametrize("auto_fuse", [True, "byte", "rng"])
-def test_auto_fuse_raises(dataset, auto_fuse):
+def test_auto_fuse_tiers_run_and_a_misspelt_tier_raises(dataset,
+                                                        auto_fuse):
     """Every tier runs (a lone crop step has nothing to fuse and runs as
     it is); only a misspelt tier raises."""
     root, imgs, labels = dataset
