@@ -56,12 +56,21 @@ with method="shear", each step's launches read on its own, one batch of
 every new step held against the same batch on the CPU, and the rotation
 kernel alone at the frames' canvas; then the symmetry fan-out pipelines,
 each with and without auto_fuse; then the codec phase: whether the native
-IO engine builds (its compiler message when it does not), pipeline J
-(crop_square to .jpg, rotations by shear to JPEG, symmetry) over 68 JPEGs
-made from a seed, once with the codec gates on "auto" and once off, the
-two runs' files byte for byte and the rotation kernel's launches, and
-the device JPEG halves on a [32, 512, 512, 3] batch on the card against
-the CPU, timed; then the entry points: the CLI (python -m
+IO engine builds (its compiler message when it does not; the card's
+machine has no libjpeg headers, so there the host codec is Pillow's), the
+port's JPEG coefficient coder (libipp_jcoef.so from native/ipp_jcoef.cpp
+with g++ and no codec library; the phase fails if it does not build),
+pipeline J (crop_square to .jpg, rotations by shear to JPEG, symmetry)
+over 68 JPEGs made from a seed, once with the codec gates on "auto" (both
+coefficient transports: the coder's entropy decode and encode on the host,
+the device halves on the card, each spied on, and fewer bytes fetched)
+and once off, the two runs' files byte for byte (on the card: the coder
+and the device halves against Pillow's codec) and the rotation kernel's
+launches, items/s and d2h bytes of both runs and the coder's seconds; the
+coder alone over the dataset, and a round trip of Pillow's q75 and q95
+files through it, byte for byte; and the device JPEG halves on a [32,
+512, 512, 3] batch on the card against the CPU, timed; then the entry
+points: the CLI (python -m
 image_processor_pipeline_tpu_torch run, JAX's example config with
 rotations by shear, in a process of its own, with and without
 --auto-fuse) against the same pipeline built in-process, files and
@@ -1372,29 +1381,135 @@ def codec_device_halves(dev, card, B=32, S=512):
     return out
 
 
+#: the coder's entry points the engine calls, timed in the codec phase
+CODER_CALLS = ("read_jpeg_coefs_sparse_batch", "read_jpeg_coefs_batch",
+               "write_jpeg_coefs_sparse")
+#: the device halves of the transports, counted in the codec phase
+TRANSPORT_CALLS = ("decode_finish_sparse", "decode_finish",
+                   "encode_start_sparse")
+
+
+def spied(module, names, record):
+    """Wrap ``module``'s functions ``names`` so that each call adds its
+    seconds and one call to ``record[name]``; returns a function that puts
+    the originals back.  Callers reach them through the module, so the
+    engine's calls are seen."""
+    import threading
+
+    lock = threading.Lock()
+    real = {name: getattr(module, name) for name in names}
+
+    def wrap(name):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                with lock:
+                    calls, secs = record.get(name, (0, 0.0))
+                    record[name] = (calls + 1, secs + dt)
+        return call
+
+    for name in names:
+        setattr(module, name, wrap(name))
+
+    def restore():
+        for name, fn in real.items():
+            setattr(module, name, fn)
+    return restore
+
+
+def host_build_line(module):
+    """How a host library of the port came to be loaded in this run:
+    compiled, in the seconds utils/native_build.py timed, or loaded as an
+    earlier process built it."""
+    from image_processor_pipeline_tpu_torch.utils import native_build
+
+    name = module._SO.name
+    secs = native_build.BUILD_SECONDS.get(name)
+    how = (f"built in {secs:.1f} s" if secs is not None
+           else "loaded as an earlier process built it")
+    return (f"{name} {how} from {module.SOURCE.name} (g++ "
+            f"{' '.join(module.CXX_FLAGS)} {' '.join(module.LIBS)})")
+
+
+def coder_round_trip(base, card):
+    """The coder alone, no libjpeg in the loop: Pillow's baseline 4:2:0
+    files at q75 and q95, read and written back at their quality, equal
+    their source byte for byte.  Returns the files checked."""
+    from PIL import Image
+
+    from image_processor_pipeline_tpu_torch.io import jcoef
+
+    rng = np.random.default_rng(33)
+    yy, xx = np.mgrid[0:ENGINE_H, 0:ENGINE_W]
+    base.mkdir(parents=True)
+    n = 0
+    for q in (75, 95):
+        for h, w in ((ENGINE_H, ENGINE_W), (479, 639), (17, 33), (8, 200)):
+            img = engine_image(rng, yy, xx)[0][:h, :w]
+            src, out = base / f"src_{q}_{h}x{w}.jpg", base / "out.jpg"
+            Image.fromarray(np.ascontiguousarray(img)).save(src, quality=q)
+            cap = (-(-h // 16) * 2, -(-w // 16) * 2)
+            cap_c = (cap[0] // 2, cap[1] // 2)
+            res = jcoef.read_jpeg_coefs(src, cap, cap_c)
+            if res is None:
+                raise AssertionError(f"coder round trip: {src.name} did not "
+                                     f"read")
+            cy, cc, _, info = res
+            ok = jcoef.write_jpeg_coefs(out, cy, cc, h, w, q)
+            if not ok or out.read_bytes() != src.read_bytes():
+                a, b = src.read_bytes(), out.read_bytes()
+                at = next((i for i in range(min(len(a), len(b)))
+                           if a[i] != b[i]), min(len(a), len(b)))
+                raise AssertionError(
+                    f"coder round trip: {src.name} written back differs "
+                    f"from Pillow's file (written {ok}, sizes {len(a)} / "
+                    f"{len(b)}, first difference at byte {at}: "
+                    f"{a[max(at - 8, 0):at + 8].hex()} / "
+                    f"{b[max(at - 8, 0):at + 8].hex()})")
+            n += 1
+    print(f"codec: coder round trip, Pillow's baseline 4:2:0 files at q75 "
+          f"and q95 (4 sizes each) read and written back by the coder == "
+          f"their source, byte for byte: {n} files; card {card}")
+    return n
+
+
 def codec_pipelines(root, dev, card, workers, launches):
     """Pipeline J over CODEC_IMAGES JPEGs (and four odd ones) on ``dev``,
     once with the codec gates on "auto" and once with device_decode and
-    device_encode False: every item a Success, the two runs' files
-    byte-identical, the file counts right, the rotation kernel launched
-    once a rotations batch with no direct tile; then the device halves
-    alone.  Adds the kernel's launches to ``launches``; returns the
-    phase's measurements."""
+    device_encode False.  The coefficient coder (io/jcoef.py) must build;
+    the "auto" run must take both transports (the device halves called,
+    items through the sparse read, only the odd files on the host decode)
+    and fetch fewer bytes than the run with the gates off; every item a
+    Success, the two runs' files byte-identical, the file counts right,
+    the rotation kernel launched once a rotations batch with no direct
+    tile; then the coder alone (a round trip of Pillow's files, and its
+    read and write seconds over the dataset) and the device halves alone.
+    Adds the kernel's launches to ``launches``; returns the phase's
+    measurements."""
     from image_processor_pipeline_tpu_torch import kernels
     from image_processor_pipeline_tpu_torch.io import images as io_images
-    from image_processor_pipeline_tpu_torch.io import native
+    from image_processor_pipeline_tpu_torch.io import jcoef, native
+    from image_processor_pipeline_tpu_torch.ops import jpeg
 
     t_phase = time.perf_counter()
     status = ("available" if native.available()
               else f"unavailable: {native.build_error()}")
     print(f"native_io: {status}".replace("\n", " | "))
+    if not jcoef.available():
+        raise AssertionError(f"codec: the JPEG coefficient coder is "
+                             f"unavailable: {jcoef.build_error()}")
+    print(f"codec: {host_build_line(jcoef)}")
     base = root / "J"
     imgs, labels = write_codec_dataset(base / "data", CODEC_IMAGES, 19,
                                        workers)
     n = CODEC_IMAGES + 4
+    n_odd = 4
 
     # each group decode's items by where they went; a group the hybrid
-    # decode gave back (no library, a canvas it cannot take) is host decoded
+    # decode gave back (a canvas it cannot take) is host decoded
     tally = {}
     real_group = io_images._decode_group_device
 
@@ -1409,17 +1524,25 @@ def codec_pipelines(root, dev, card, workers, launches):
             tally["host"] = tally.get("host", 0) + len(items)
         return got
 
-    runs = {}
+    runs, coder, halves_called = {}, {}, {}
     io_images._decode_group_device = tallied
     try:
-        for label, codec in (("auto", {}), ("off", {
-                "device_decode": False, "device_encode": False})):
+        for label, codec in (("auto", {}),
+                             ("off", {"device_decode": False,
+                                      "device_encode": False})):
+            coder[label], halves_called[label] = {}, {}
+            restore = [spied(jcoef, CODER_CALLS, coder[label]),
+                       spied(jpeg, TRANSPORT_CALLS, halves_called[label])]
             t0 = time.perf_counter()
-            ((steps, events), direct), counts = drive(
-                kernels, None, lambda: count_direct_tiles(
-                    kernels, dev, lambda: pipeline_j(
-                        base / label, imgs, labels, dev, codec, workers,
-                        tally)))
+            try:
+                ((steps, events), direct), counts = drive(
+                    kernels, None, lambda: count_direct_tiles(
+                        kernels, dev, lambda: pipeline_j(
+                            base / label, imgs, labels, dev, codec, workers,
+                            tally)))
+            finally:
+                for undo in restore:
+                    undo()
             runs[label] = steps
             crop, rot, sym = steps
             for step, items in ((crop, n), (rot, n), (sym, n * 5)):
@@ -1438,13 +1561,41 @@ def codec_pipelines(root, dev, card, workers, launches):
                     f"codec pipeline J ({label}): launch counts {counts}, "
                     f"expected {want}; direct tiles {direct}")
             launches["shear_rotate_packed"] += counts["shear_rotate_packed"]
+            called = {k: c for k, (c, _) in halves_called[label].items()}
             print(f"codec pipeline J ({label}): shear_rotate_packed launched "
                   f"{counts['shear_rotate_packed']} times, once for each of "
                   f"the rotations step's {rot.metrics.batches} batches; "
-                  f"direct tiles {direct}; "
-                  f"{time.perf_counter() - t0:.1f} s")
+                  f"direct tiles {direct}; the transports' device halves "
+                  f"called {called}; {time.perf_counter() - t0:.1f} s")
     finally:
         io_images._decode_group_device = real_group
+
+    # the "auto" run took both transports; the run with the gates off
+    # took neither and never called the coder
+    auto_steps, off_steps = runs["auto"], runs["off"]
+    called = halves_called["auto"]
+    if not (called.get("decode_finish_sparse", (0,))[0] > 0
+            and called.get("encode_start_sparse", (0,))[0] > 0):
+        raise AssertionError(f"codec pipeline J (auto): the transports did "
+                             f"not run: device halves called {called}")
+    if halves_called["off"] or coder["off"]:
+        raise AssertionError(f"codec pipeline J (off): transports ran: "
+                             f"{halves_called['off']}, coder {coder['off']}")
+    crop_decode = auto_steps[0].decode
+    if not (crop_decode["sparse"] > 0 and crop_decode["host"] <= n_odd):
+        raise AssertionError(f"codec pipeline J (auto): crop_square's "
+                             f"decode {crop_decode}, expected the sparse "
+                             f"read for all but at most the {n_odd} odd "
+                             f"files")
+    for a_step, o_step in zip(auto_steps, off_steps):
+        am, om = a_step.metrics, o_step.metrics
+        if not (am.d2h_bytes_full == om.d2h_bytes_full
+                and 0 < am.d2h_bytes_fetched < om.d2h_bytes_fetched):
+            raise AssertionError(
+                f"codec pipeline J: step {a_step.name} fetched "
+                f"{am.d2h_bytes_fetched} of {am.d2h_bytes_full} bytes on "
+                f"auto, {om.d2h_bytes_fetched} of {om.d2h_bytes_full} off")
+
     files = {}
     for d, want_n in (("crops/imgs", n), ("crops/labels", n), ("rot", n * 5),
                       ("sym", None)):
@@ -1453,21 +1604,87 @@ def codec_pipelines(root, dev, card, workers, launches):
         off = {p.name: p.read_bytes()
                for p in sorted((base / "off" / d).iterdir())}
         if got != off:
+            bad = sorted(k for k in got if got[k] != off.get(k))[:3]
             raise AssertionError(f"codec pipeline J: {d} differs between "
-                                 f"the gates on auto and off")
+                                 f"the gates on auto and off ({len(got)} / "
+                                 f"{len(off)} files; first differing "
+                                 f"{bad})")
         if want_n is not None and len(got) != want_n or not got:
             raise AssertionError(f"codec pipeline J: {len(got)} files in "
                                  f"{d}, expected {want_n}")
         files[d] = len(got)
-    print(f"codec pipeline J: the files of the gates on auto == off, byte "
-          f"for byte: {files}")
+    print(f"codec pipeline J: the files of the gates on auto (the coder "
+          f"and the device halves) == off (the host codec: "
+          f"{'the native IO engine' if native.available() else 'Pillow'}),"
+          f" byte for byte: {files}")
+    for a_step, o_step in zip(auto_steps, off_steps):
+        am, om = a_step.metrics, o_step.metrics
+        print(f"codec pipeline J, step {a_step.name}: items/s auto "
+              f"{am.items_per_second:.1f} / off {om.items_per_second:.1f}; "
+              f"d2h_bytes_full {am.d2h_bytes_full}, d2h_bytes_fetched "
+              f"auto {am.d2h_bytes_fetched} / off {om.d2h_bytes_fetched} "
+              f"({am.d2h_bytes_fetched / om.d2h_bytes_fetched:.4f}); card "
+              f"{card}")
+    print(f"codec pipeline J (auto): the coder's calls and seconds, summed "
+          f"over the threads that made them: "
+          + ", ".join(f"{k} {c} calls {s:.3f} s"
+                      for k, (c, s) in sorted(coder["auto"].items()))
+          + f"; card {card}")
+
+    # the coder alone over the dataset: one threaded read of every file,
+    # then each file's coefficients written back in one thread
+    paths = sorted(imgs.iterdir())
+    cap = (ENGINE_H // 8, ENGINE_W // 8)
+    t0 = time.perf_counter()
+    sparse = jcoef.read_jpeg_coefs_sparse_batch(paths, cap, cap,
+                                                n_threads=workers)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = jcoef.read_jpeg_coefs_batch(paths, cap, cap, n_threads=1)
+    read1_s = time.perf_counter() - t0
+    out = base / "coder_out.jpg"
+    t0 = time.perf_counter()
+    n_written = 0
+    for i in range(len(paths)):
+        info = dense[3][i]
+        if int(info[0]) <= 0 or int(info[2]) != 3 \
+                or (int(info[3]), int(info[4])) != (2, 2):
+            continue  # the writer writes 4:2:0 only
+        if not jcoef.write_jpeg_coefs(out, dense[0][i], dense[1][i],
+                                      int(info[0]), int(info[1]), 90):
+            raise AssertionError(f"coder: writing {paths[i].name} back "
+                                 f"failed")
+        n_written += 1
+    write_s = time.perf_counter() - t0
+    failed = [p.name for p, info in zip(paths, sparse[4]) if info[0] < 0]
+    print(f"codec: the coder alone over the {len(paths)} files of "
+          f"{ENGINE_W} x {ENGINE_H}: sparse batch read {read_s:.3f} s on "
+          f"{workers} threads ({read_s / len(paths) * 1e3:.2f} ms a file), "
+          f"dense batch read {read1_s:.3f} s on 1 thread "
+          f"({read1_s / len(paths) * 1e3:.2f} ms a file), write back at q90 "
+          f"{write_s:.3f} s for {n_written} 4:2:0 files on 1 thread "
+          f"({write_s / max(n_written, 1) * 1e3:.2f} ms a file); items the "
+          f"sparse read refused: {failed}; card {card}")
+    round_trip = coder_round_trip(base / "round_trip", card)
     halves = codec_device_halves(dev, card)
     print(f"codec phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"native_io": status, "device_halves": halves,
+    return {"native_io": status, "coder": "available",
+            "device_halves": halves,
             "d2h": {label: {s.name: [s.metrics.d2h_bytes_full,
                                      s.metrics.d2h_bytes_fetched]
                             for s in steps}
-                    for label, steps in runs.items()}}
+                    for label, steps in runs.items()},
+            "items_per_second": {label: {s.name: s.metrics.items_per_second
+                                         for s in steps}
+                                 for label, steps in runs.items()},
+            "coder_seconds": {"auto_run": coder["auto"],
+                              "alone": {"files": len(paths),
+                                        "read_sparse_s": read_s,
+                                        "read_threads": workers,
+                                        "read_dense_1_thread_s": read1_s,
+                                        "write_s": write_s,
+                                        "written": n_written}},
+            "round_trip_files": round_trip}
 
 
 REPO = Path(__file__).resolve().parent
@@ -1891,15 +2108,10 @@ def native_compute_pipelines(root, dev, card, workers, imgs_dir, labels_dir):
         draw_angles)
 
     t_phase = time.perf_counter()
-    built = native_cpu._stale()  # a checkout holds no _build/
-    t0 = time.perf_counter()
     if not native_cpu.available():
         raise AssertionError(f"libipp_cpu.so does not build: "
                              f"{native_cpu.build_error()}")
-    print(f"native: libipp_cpu.so {'built' if built else 'loaded'} from "
-          f"{native_cpu.SOURCE.name} in {time.perf_counter() - t0:.1f} s "
-          f"(g++ {' '.join(native_cpu.CXX_FLAGS)} "
-          f"{' '.join(native_cpu.LIBS)})")
+    print(f"native: {host_build_line(native_cpu)}")
 
     # the spies: each binding's calls, and each step's batches the twin
     # took (native_fn returned outputs) or declined
@@ -2540,6 +2752,17 @@ def main() -> None:
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    # the host libraries of the codec and native phases, built here, so
+    # that their compiles are timed before any phase loads them
+    from image_processor_pipeline_tpu_torch.io import jcoef
+    from image_processor_pipeline_tpu_torch.ops import native_cpu
+
+    for module in (jcoef, native_cpu):
+        if module.available():
+            print(f"build: {host_build_line(module)}")
+        else:
+            print(f"build: {module._SO.name} failed: "
+                  f"{module.build_error()}".replace("\n", " | "))
     sass = sass_counts(kernels.BUILD / "libipp_cuda.so")
     for label, (total, loops) in sass.items():
         print(f"  sass: {label}: {total} instructions, loops of "

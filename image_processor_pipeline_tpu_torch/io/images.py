@@ -12,7 +12,9 @@ the cv2/Pillow-parity JPEG encoder and the PNG encoders.  Where that
 library cannot be built, Pillow does the same work, as in the JAX package;
 it is imported inside the functions that use it, never when this module is
 imported.  ``_decode_group_device`` is the hybrid JPEG decode: entropy
-decode on the host, the rest on the step's device (ops/jpeg.py).
+decode on the host by the port's own coefficient coder (io/jcoef.py over
+native/ipp_jcoef.cpp, no codec library), the rest on the step's device
+(ops/jpeg.py).
 
 Directory inventory parity: reference pipeline.py:122-146
 (_get_files_from_inputs) lists and **sorts** files, erroring on missing or
@@ -29,7 +31,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from image_processor_pipeline_tpu_torch.io import native
+from image_processor_pipeline_tpu_torch.io import jcoef, native
 from image_processor_pipeline_tpu_torch.io.batching import (
     bucket_dim,
     canvas_for,
@@ -329,6 +331,8 @@ def _decode_group_device(items, canvas, mode, device, n_threads: int = 0,
     paths = [Path(it["_decode"][0]) for it in items]
     if any(p.suffix.lower() not in (".jpg", ".jpeg") for p in paths):
         return None
+    if not jcoef.available():  # no coder: the host decodes the pixels
+        return None
     cap_b = (cap_h // 8, cap_w // 8)
     cap_c_half = ((cap_b[0] + 1) // 2, (cap_b[1] + 1) // 2)
     n = len(items)
@@ -341,7 +345,7 @@ def _decode_group_device(items, canvas, mode, device, n_threads: int = 0,
     #       h1v2 streams) → sparse retry with full-size chroma caps;
     #   -6 (nonzero count exceeds the sparse capacity) → dense reader;
     #   anything else → host decode fallback below.
-    res = _read_or_none(native.read_jpeg_coefs_sparse_batch, paths, cap_b,
+    res = _read_or_none(jcoef.read_jpeg_coefs_sparse_batch, paths, cap_b,
                         n_threads=n_threads)
     if res is None:
         return None
@@ -351,7 +355,7 @@ def _decode_group_device(items, canvas, mode, device, n_threads: int = 0,
     rows = {i: ("sp", i) for i in range(n) if int(infos[i][0]) >= 0}
     r3 = [i for i in range(n) if int(infos[i][0]) == -3]
     if r3:
-        res3 = _read_or_none(native.read_jpeg_coefs_sparse_batch,
+        res3 = _read_or_none(jcoef.read_jpeg_coefs_sparse_batch,
                              [paths[i] for i in r3], cap_b,
                              cap_blocks_c=cap_b, n_threads=n_threads)
         if res3 is not None:
@@ -370,7 +374,7 @@ def _decode_group_device(items, canvas, mode, device, n_threads: int = 0,
         stats["n"] = stats.get("n", 0) + n
         stats["dense"] = stats.get("dense", 0) + len(r6)
     if r6:
-        resd = _read_or_none(native.read_jpeg_coefs_batch,
+        resd = _read_or_none(jcoef.read_jpeg_coefs_batch,
                              [paths[i] for i in r6], cap_b,
                              cap_blocks_c=cap_b, n_threads=n_threads)
         if resd is not None:

@@ -8,6 +8,9 @@
 // Decoding writes directly into caller-provided zero-padded canvas buffers
 // (the batch layout the device program consumes), so batch assembly is a
 // single pass with no intermediate numpy copies.
+//
+// The JPEG coefficient reader and writer of the coefficient transports are
+// not here: ipp_jcoef.cpp holds them, with no codec library.
 
 #include <cstdint>
 #include <cstdio>
@@ -334,244 +337,6 @@ void ipp_decode_batch(const char** paths, int n, uint8_t* bufs, int cap_h,
   for (auto& th : pool) th.join();
 }
 
-// Entropy-decode ONLY: extract the quantized DCT coefficients of a JPEG so
-// the device can finish the decode (dequant + exact islow IDCT + fancy
-// chroma upsample + fixed-point YCbCr->RGB in ops/jpeg.py) — the hybrid
-// decode path that shifts the IDCT/upsample/color cost off the host.
-// Works for baseline and progressive streams alike
-// (jpeg_read_coefficients performs the full entropy decode).
-//
-// Buffer layout (all caller-provided and ZEROED by the caller — fresh
-// calloc pages are free; this function touches only the regions it fills):
-//   coefs: Y [cap_by][cap_bx][64], then Cb and Cr [cap_by_c][cap_bx_c][64]
-//   each, int16, NATURAL (row-major frequency) order — libjpeg de-zigzags
-//   at entropy-decode time.
-//   qtabs: [3][64] uint16, natural order.
-//   info out: {h, w, ncomp, per component (h_samp, v_samp,
-//   height_in_blocks, width_in_blocks), jpeg_color_space}.
-// Returns 0 ok, -1 open failure, -2 codec failure, -3 caps too small,
-// -5 unsupported component count.
-// Shared core for dense and sparse (COO) coefficient extraction.  Sparse
-// mode (dense == nullptr) appends each nonzero coefficient as an
-// (idx, val) pair with idx = its linear position in the DENSE per-image
-// layout, so a device scatter reconstructs exactly what the dense call
-// would ship; most high-frequency blocks are zero at q <= 92, so the
-// pairs (6 B each) cut transport bytes ~3x vs the dense grids.  Returns
-// -6 when cap_nnz overflows (callers fall back to the dense call).
-static int read_jpeg_coefs_impl(const char* path, int16_t* dense,
-                                int32_t* sp_idx, int16_t* sp_val,
-                                int cap_nnz, int* nnz_out, int cap_by,
-                                int cap_bx, int cap_by_c, int cap_bx_c,
-                                uint16_t* qtabs, int* info) {
-  FILE* f = fopen(path, "rb");
-  if (!f) return -1;
-  advise_sequential(f);
-  jpeg_decompress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jpeg_err_exit;
-  if (setjmp(jerr.jump)) {
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return -2;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  jpeg_read_header(&cinfo, TRUE);
-  if (cinfo.num_components < 1 || cinfo.num_components > 3) {
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return -5;
-  }
-  {
-    // cap check from HEADER fields (jdinput.c initial_setup formulas) so a
-    // caps-too-small miss costs no entropy decode — the caller's -3 retry
-    // ladder (half-size then full-size chroma caps) would otherwise pay
-    // jpeg_read_coefficients twice per 4:4:4/h2v1/h1v2 file
-    int max_h = 1, max_v = 1;
-    for (int c = 0; c < cinfo.num_components; ++c) {
-      if (cinfo.comp_info[c].h_samp_factor > max_h)
-        max_h = cinfo.comp_info[c].h_samp_factor;
-      if (cinfo.comp_info[c].v_samp_factor > max_v)
-        max_v = cinfo.comp_info[c].v_samp_factor;
-    }
-    for (int c = 0; c < cinfo.num_components; ++c) {
-      const long bw =
-          (static_cast<long>(cinfo.image_width) *
-               cinfo.comp_info[c].h_samp_factor +
-           static_cast<long>(max_h) * DCTSIZE - 1) /
-          (static_cast<long>(max_h) * DCTSIZE);
-      const long bh =
-          (static_cast<long>(cinfo.image_height) *
-               cinfo.comp_info[c].v_samp_factor +
-           static_cast<long>(max_v) * DCTSIZE - 1) /
-          (static_cast<long>(max_v) * DCTSIZE);
-      const int cby = (c == 0) ? cap_by : cap_by_c;
-      const int cbx = (c == 0) ? cap_bx : cap_bx_c;
-      if (bh > cby || bw > cbx) {
-        jpeg_destroy_decompress(&cinfo);
-        fclose(f);
-        return -3;
-      }
-    }
-  }
-  jvirt_barray_ptr* arrays = jpeg_read_coefficients(&cinfo);
-  if (!arrays) {
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return -2;
-  }
-  info[0] = static_cast<int>(cinfo.image_height);
-  info[1] = static_cast<int>(cinfo.image_width);
-  info[2] = cinfo.num_components;
-  info[15] = static_cast<int>(cinfo.jpeg_color_space);
-  const size_t y_stride = static_cast<size_t>(cap_by) * cap_bx * DCTSIZE2;
-  const size_t c_stride =
-      static_cast<size_t>(cap_by_c) * cap_bx_c * DCTSIZE2;
-  int nnz = 0;
-  for (int c = 0; c < cinfo.num_components; ++c) {
-    jpeg_component_info* ci = &cinfo.comp_info[c];
-    const int by = static_cast<int>(ci->height_in_blocks);
-    const int bx = static_cast<int>(ci->width_in_blocks);
-    const int cby = (c == 0) ? cap_by : cap_by_c;
-    const int cbx = (c == 0) ? cap_bx : cap_bx_c;
-    if (by > cby || bx > cbx) {
-      jpeg_destroy_decompress(&cinfo);
-      fclose(f);
-      return -3;
-    }
-    info[3 + c * 4 + 0] = ci->h_samp_factor;
-    info[3 + c * 4 + 1] = ci->v_samp_factor;
-    info[3 + c * 4 + 2] = by;
-    info[3 + c * 4 + 3] = bx;
-    const JQUANT_TBL* qt = cinfo.quant_tbl_ptrs[ci->quant_tbl_no];
-    if (!qt) qt = ci->quant_table;  // progressive streams stash it here
-    if (!qt) {
-      jpeg_destroy_decompress(&cinfo);
-      fclose(f);
-      return -2;
-    }
-    for (int k = 0; k < DCTSIZE2; ++k) {
-      qtabs[c * DCTSIZE2 + k] = qt->quantval[k];
-    }
-    const size_t comp_base = (c == 0) ? 0 : y_stride + (c - 1) * c_stride;
-    for (int row = 0; row < by; ++row) {
-      JBLOCKARRAY rows = (*cinfo.mem->access_virt_barray)(
-          reinterpret_cast<j_common_ptr>(&cinfo), arrays[c],
-          static_cast<JDIMENSION>(row), 1, FALSE);
-      static_assert(sizeof(JCOEF) == sizeof(int16_t),
-                    "JCOEF expected to be int16");
-      const size_t row_base =
-          comp_base + static_cast<size_t>(row) * cbx * DCTSIZE2;
-      if (dense) {
-        memcpy(dense + row_base, rows[0][0],
-               static_cast<size_t>(bx) * DCTSIZE2 * sizeof(JCOEF));
-      } else {
-        const JCOEF* src = rows[0][0];
-        const int cnt = bx * DCTSIZE2;
-        for (int k = 0; k < cnt; ++k) {
-          if (src[k]) {
-            if (nnz >= cap_nnz) {
-              jpeg_destroy_decompress(&cinfo);
-              fclose(f);
-              return -6;  // sparse capacity overflow
-            }
-            sp_idx[nnz] = static_cast<int32_t>(row_base + k);
-            sp_val[nnz] = static_cast<int16_t>(src[k]);
-            ++nnz;
-          }
-        }
-      }
-    }
-  }
-  if (nnz_out) *nnz_out = nnz;
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  fclose(f);
-  return 0;
-}
-
-// Dense entry point (layout documented above).
-int ipp_read_jpeg_coefs(const char* path, int16_t* coefs, int cap_by,
-                        int cap_bx, int cap_by_c, int cap_bx_c,
-                        uint16_t* qtabs, int* info) {
-  return read_jpeg_coefs_impl(path, coefs, nullptr, nullptr, 0, nullptr,
-                              cap_by, cap_bx, cap_by_c, cap_bx_c, qtabs,
-                              info);
-}
-
-// Sparse (COO) entry point: up to cap_nnz (idx, val) pairs; *nnz_out set.
-int ipp_read_jpeg_coefs_sparse(const char* path, int32_t* idx, int16_t* val,
-                               int cap_nnz, int* nnz_out, int cap_by,
-                               int cap_bx, int cap_by_c, int cap_bx_c,
-                               uint16_t* qtabs, int* info) {
-  return read_jpeg_coefs_impl(path, nullptr, idx, val, cap_nnz, nnz_out,
-                              cap_by, cap_bx, cap_by_c, cap_bx_c, qtabs,
-                              info);
-}
-
-// Parallel sparse batch: per-image (idx [cap_nnz] int32, val [cap_nnz]
-// int16, nnz) rows + qtabs + infos (infos[i][0] = negative rc on failure,
-// incl. -6 sparse overflow).  Caller zeroes idx/val (padding scatters 0
-// to slot 0 — harmless under scatter-add).
-void ipp_read_jpeg_coefs_sparse_batch(const char** paths, int n,
-                                      int32_t* idxs, int16_t* vals,
-                                      int cap_nnz, int* nnzs, int cap_by,
-                                      int cap_bx, int cap_by_c,
-                                      int cap_bx_c, uint16_t* qtabs,
-                                      int* infos, int n_threads) {
-  if (n_threads < 1) n_threads = 1;
-  std::atomic<int> next(0);
-  auto worker = [&]() {
-    for (;;) {
-      const int i = next.fetch_add(1);
-      if (i >= n) return;
-      const int rc = ipp_read_jpeg_coefs_sparse(
-          paths[i], idxs + static_cast<size_t>(i) * cap_nnz,
-          vals + static_cast<size_t>(i) * cap_nnz, cap_nnz, nnzs + i,
-          cap_by, cap_bx, cap_by_c, cap_bx_c,
-          qtabs + static_cast<size_t>(i) * 3 * DCTSIZE2, infos + i * 16);
-      if (rc != 0) infos[i * 16] = rc;
-    }
-  };
-  std::vector<std::thread> pool;
-  const int nt = n_threads < n ? n_threads : n;
-  pool.reserve(nt);
-  for (int t = 0; t < nt; ++t) pool.emplace_back(worker);
-  for (auto& th : pool) th.join();
-}
-
-// Parallel batch coefficient extraction: n JPEGs into one
-// [n, cap_by*cap_bx*64 + 2*cap_by_c*cap_bx_c*64] int16 buffer (per-image
-// layout as above) + [n, 3, 64] uint16 qtabs + [n, 16] info rows
-// (info[i][0] = negative rc on failure).  Caller zeroes the buffers.
-void ipp_read_jpeg_coefs_batch(const char** paths, int n, int16_t* coefs,
-                               int cap_by, int cap_bx, int cap_by_c,
-                               int cap_bx_c, uint16_t* qtabs, int* infos,
-                               int n_threads) {
-  if (n_threads < 1) n_threads = 1;
-  std::atomic<int> next(0);
-  const size_t img_stride =
-      static_cast<size_t>(cap_by) * cap_bx * DCTSIZE2 +
-      2 * static_cast<size_t>(cap_by_c) * cap_bx_c * DCTSIZE2;
-  auto worker = [&]() {
-    for (;;) {
-      const int i = next.fetch_add(1);
-      if (i >= n) return;
-      const int rc = ipp_read_jpeg_coefs(
-          paths[i], coefs + img_stride * i, cap_by, cap_bx, cap_by_c,
-          cap_bx_c, qtabs + static_cast<size_t>(i) * 3 * DCTSIZE2,
-          infos + i * 16);
-      if (rc != 0) infos[i * 16] = rc;
-    }
-  };
-  std::vector<std::thread> pool;
-  const int nt = n_threads < n ? n_threads : n;
-  pool.reserve(nt);
-  for (int t = 0; t < nt; ++t) pool.emplace_back(worker);
-  for (auto& th : pool) th.join();
-}
-
 // Encode RGB rows as JPEG.  `stride` is the SIGNED row pitch in BYTES
 // (|stride| >= w*3) — canvas crops AND vertically-flipped views (negative
 // pitch) encode zero-copy without an ascontiguousarray pass.  `flip_x`
@@ -887,152 +652,6 @@ int ipp_encode_png_tiled(const char* path, const uint8_t* data, int h,
   zbuf[off + 2] = (uint8_t)(adler >> 8);
   zbuf[off + 3] = (uint8_t)adler;
   return write_png_container(path, h, w, channels, zbuf.data(), zlen);
-}
-
-// Entropy-only JPEG write from quantized DCT coefficients — the host half
-// of the hybrid device ENCODE (ops/jpeg.py:encode_start does color
-// conversion + 4:2:0 downsample + islow FDCT + quantization on device;
-// this call is jpeg_write_coefficients with the baseline defaults, the
-// exact mirror of ipp_read_jpeg_coefs).  `coefs` layout mirrors the
-// reader: Y [cap_by, cap_bx, 64] then Cb and Cr [cap_by_c, cap_bx_c, 64],
-// int16 natural order; `quality` MUST be the quality whose tables the
-// device quantized with (jpeg_set_quality here installs the same ones, so
-// the output file is byte-identical to ipp_encode_jpeg on the pixels).
-// 4:2:0 YCbCr only (jpeg_set_defaults' layout — every encoder in play).
-int ipp_write_jpeg_coefs(const char* path, const int16_t* coefs, int cap_by,
-                         int cap_bx, int cap_by_c, int cap_bx_c, int h,
-                         int w, int quality) {
-  if (h < 1 || w < 1) return -4;
-  FILE* f = fopen(path, "wb");
-  if (!f) return -1;
-  jpeg_compress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jpeg_err_exit;
-  if (setjmp(jerr.jump)) {
-    jpeg_destroy_compress(&cinfo);
-    fclose(f);
-    return -2;
-  }
-  jpeg_create_compress(&cinfo);
-  jpeg_stdio_dest(&cinfo, f);
-  cinfo.image_width = static_cast<JDIMENSION>(w);
-  cinfo.image_height = static_cast<JDIMENSION>(h);
-  cinfo.input_components = 3;
-  cinfo.in_color_space = JCS_YCbCr;
-  jpeg_set_defaults(&cinfo);  // YCbCr, samp 2x2/1x1/1x1, baseline Huffman
-  jpeg_set_quality(&cinfo, quality, TRUE);
-
-  // per-component block dims (jdinput.c initial_setup, max_samp = 2) and
-  // the iMCU-rounded virtual-array extents (jccoefct reads real blocks
-  // only up to width/height_in_blocks and synthesizes the dummy blocks)
-  jvirt_barray_ptr arrays[3];
-  int bhs[3], bws[3];
-  for (int c = 0; c < 3; ++c) {
-    const jpeg_component_info* ci = &cinfo.comp_info[c];
-    const int hs = ci->h_samp_factor, vs = ci->v_samp_factor;
-    const int bw = (w * hs + 2 * DCTSIZE - 1) / (2 * DCTSIZE);
-    const int bh = (h * vs + 2 * DCTSIZE - 1) / (2 * DCTSIZE);
-    const int cby = (c == 0) ? cap_by : cap_by_c;
-    const int cbx = (c == 0) ? cap_bx : cap_bx_c;
-    if (bh > cby || bw > cbx) {
-      jpeg_destroy_compress(&cinfo);
-      fclose(f);
-      return -3;
-    }
-    bhs[c] = bh;
-    bws[c] = bw;
-    const int rbw = (bw + hs - 1) / hs * hs;
-    const int rbh = (bh + vs - 1) / vs * vs;
-    // pre_zero=TRUE: jpeg_finish_compress's aligning access reads vs rows
-    // per iMCU row, but images under a block-row of content only ever get
-    // bh rows WRITTEN — an undefined-row read on a non-prezeroed array is
-    // ERREXIT(JERR_BAD_VIRTUAL_ACCESS) (jmemmgr access_virt_barray), and
-    // zeroed dummy rows/cols are never entropy-coded (jctrans synthesizes
-    // its own dummy blocks from last_col_width/last_row_height).
-    arrays[c] = (*cinfo.mem->request_virt_barray)(
-        reinterpret_cast<j_common_ptr>(&cinfo), JPOOL_IMAGE, TRUE,
-        static_cast<JDIMENSION>(rbw), static_cast<JDIMENSION>(rbh),
-        static_cast<JDIMENSION>(vs));
-  }
-  // realizes the arrays and writes the headers; the coefficient data is
-  // consumed later, inside jpeg_finish_compress
-  jpeg_write_coefficients(&cinfo, arrays);
-  const size_t y_stride = static_cast<size_t>(cap_by) * cap_bx * DCTSIZE2;
-  const size_t c_stride =
-      static_cast<size_t>(cap_by_c) * cap_bx_c * DCTSIZE2;
-  static_assert(sizeof(JCOEF) == sizeof(int16_t), "JCOEF must be int16");
-  for (int c = 0; c < 3; ++c) {
-    const int cbx = (c == 0) ? cap_bx : cap_bx_c;
-    const size_t comp_base = (c == 0) ? 0 : y_stride + (c - 1) * c_stride;
-    for (int row = 0; row < bhs[c]; ++row) {
-      JBLOCKARRAY rows = (*cinfo.mem->access_virt_barray)(
-          reinterpret_cast<j_common_ptr>(&cinfo), arrays[c],
-          static_cast<JDIMENSION>(row), 1, TRUE);
-      memcpy(rows[0][0],
-             coefs + comp_base + static_cast<size_t>(row) * cbx * DCTSIZE2,
-             static_cast<size_t>(bws[c]) * DCTSIZE2 * sizeof(JCOEF));
-    }
-  }
-  jpeg_finish_compress(&cinfo);
-  jpeg_destroy_compress(&cinfo);
-  fclose(f);
-  return 0;
-}
-
-// Sparse entry: scatter (idx, val) COO pairs (device-compacted, layout =
-// the dense per-image linear index) into a dense scratch, then write.
-int ipp_write_jpeg_coefs_sparse(const char* path, const int32_t* idx,
-                                const int16_t* val, int nnz, int cap_by,
-                                int cap_bx, int cap_by_c, int cap_bx_c,
-                                int h, int w, int quality) {
-  const size_t total = static_cast<size_t>(cap_by) * cap_bx * DCTSIZE2 +
-                       2 * static_cast<size_t>(cap_by_c) * cap_bx_c *
-                           DCTSIZE2;
-  // thread_local: longjmp inside the writer must not leak a vector frame
-  static thread_local std::vector<int16_t> dense;
-  dense.assign(total, 0);
-  for (int k = 0; k < nnz; ++k) {
-    const uint32_t i = static_cast<uint32_t>(idx[k]);
-    if (i >= total) return -4;
-    dense[i] = val[k];
-  }
-  return ipp_write_jpeg_coefs(path, dense.data(), cap_by, cap_bx, cap_by_c,
-                              cap_bx_c, h, w, quality);
-}
-
-// Threaded batch writer over per-item sparse rows (idxs/vals strided by
-// cap_nnz; nnzs[i] > cap_nnz marks a device-side overflow -> rc -6, the
-// caller refetches that item dense).  rcs[i] = 0 or a negative code.
-void ipp_write_jpeg_coefs_sparse_batch(const char** paths, int n,
-                                       const int32_t* idxs,
-                                       const int16_t* vals, int cap_nnz,
-                                       const int* nnzs, int cap_by,
-                                       int cap_bx, int cap_by_c,
-                                       int cap_bx_c, const int* hs,
-                                       const int* ws, int quality,
-                                       int* rcs, int n_threads) {
-  if (n_threads < 1) n_threads = 1;
-  std::atomic<int> next(0);
-  auto worker = [&]() {
-    for (;;) {
-      const int i = next.fetch_add(1);
-      if (i >= n) return;
-      if (nnzs[i] > cap_nnz) {
-        rcs[i] = -6;
-        continue;
-      }
-      rcs[i] = ipp_write_jpeg_coefs_sparse(
-          paths[i], idxs + static_cast<size_t>(i) * cap_nnz,
-          vals + static_cast<size_t>(i) * cap_nnz, nnzs[i], cap_by, cap_bx,
-          cap_by_c, cap_bx_c, hs[i], ws[i], quality);
-    }
-  };
-  std::vector<std::thread> pool;
-  const int nt = n_threads < n ? n_threads : n;
-  pool.reserve(nt);
-  for (int t = 0; t < nt; ++t) pool.emplace_back(worker);
-  for (auto& th : pool) th.join();
 }
 
 // Parse a YOLO label file: lines of "cls cx cy w h".  Writes up to max_boxes

@@ -2,11 +2,12 @@
 (port of image_processor_pipeline_tpu/ops/jpeg.py).
 
 The hybrid decode path: the host does ONLY the entropy decode
-(native/ipp_io.cpp:ipp_read_jpeg_coefs — jpeg_read_coefficients); the
+(native/ipp_jcoef.cpp:ipp_read_jpeg_coefs, the port's own coder); the
 step's device finishes with dequantisation, the islow IDCT, fancy chroma
 upsampling and the YCbCr→RGB conversion.  The hybrid encode is its mirror:
 colour conversion, 4:2:0 downsampling, the islow FDCT and quantisation on
-the device, entropy coding on the host (ipp_write_jpeg_coefs).  Every
+the device, entropy coding on the host (ipp_jcoef.cpp:
+ipp_write_jpeg_coefs).  Every
 stage replicates libjpeg's integer math bit for bit, so files and pixels
 equal the native host codec's:
 
@@ -661,9 +662,14 @@ def encode_shrink(images, h_dev, w_dev, h_np, w_np, quality: int,
     Returns (idx, val, nnz_np, meta, pixels) — idx/val are device tensors
     sliced to the batch's max valid nnz (4096-rounded), nnz_np is host
     int32 [N], meta = (hm16, wm16, quality) for
-    io.native.write_jpeg_coefs_sparse, and pixels maps overflowed item
+    io.jcoef.write_jpeg_coefs_sparse, and pixels maps overflowed item
     indices to fetched RGB crops for the ordinary host-encode fallback.
-    Returns None when the cap'd transport could not beat the pixels.
+    Returns None when the cap'd transport could not beat the pixels of
+    the [hm, wm] crop it encodes.  The fetch can still cost more than the
+    items' own pixels: it is 6 bytes a coefficient, rounded up to 4096
+    coefficients a row, so a batch of small items may ship more than its
+    pixels (symmetry's step on 50-150 px items does, in the JAX engine
+    too).
     """
     H, W = int(images.shape[1]), int(images.shape[2])
     hm = min(H, int(-(-max(int(h_np.max()), 1) // 128) * 128))
@@ -825,13 +831,13 @@ def shrink_transport(transform, images, h_dev, w_dev, h_np, w_np,
     overflows into the transform's sticky gate (pad rows beyond
     ``n_valid_rows`` are duplicates and excluded), and returns the
     standard transport dict — jpeg_idx / jpeg_val / jpeg_nnz / jpeg_meta
-    / jpeg_pixels — or None when the native writer is unavailable or the
+    / jpeg_pixels — or None when the coefficient coder is unavailable or the
     cap'd transport cannot beat the pixel bytes (callers fall back to
     the ordinary pixel fetch; callers that SKIPPED work expecting the
     transport should also call note_declines)."""
-    from image_processor_pipeline_tpu_torch.io import native as io_native
+    from image_processor_pipeline_tpu_torch.io import jcoef
 
-    if not io_native.available():
+    if not jcoef.available():
         return None
     res = encode_shrink(
         images, h_dev, w_dev, h_np, w_np, quality,
@@ -878,10 +884,10 @@ def write_sparse_item(path, out, h: int, w: int) -> None:
     every transform's save_item.  ``out`` holds jpeg_idx/jpeg_val/jpeg_nnz
     for the item plus the batch's jpeg_meta = (hm16, wm16, quality); h/w
     are the item's valid dims."""
-    from image_processor_pipeline_tpu_torch.io import native as io_native
+    from image_processor_pipeline_tpu_torch.io import jcoef
 
     hm16, wm16, quality = out["jpeg_meta"]
-    rc = io_native.write_jpeg_coefs_sparse(
+    rc = jcoef.write_jpeg_coefs_sparse(
         path, out["jpeg_idx"], out["jpeg_val"], int(out["jpeg_nnz"]),
         (hm16 // 8, wm16 // 8), (hm16 // 16, wm16 // 16), h, w, quality)
     if rc != 0:

@@ -4,10 +4,9 @@ computations, run on host threads when a step sets
 ``options["native_compute"]=True`` (``BatchTransform.native_fn``).
 
 The library is built at first use with ``g++`` straight from the source
-into ``_build/libipp_cpu.so``; it links ``-lpthread`` only, so it builds
-wherever a C++17 compiler is.  An flock serialises the build across
-processes and the result is renamed into place, so no process ever loads a
-half-written library; it is rebuilt when the source is newer than it.
+into ``_build/libipp_cpu.so`` by utils/native_build.py (an flock, a temp
+file renamed into place, a rebuild when the source is newer); it links
+``-lpthread`` only, so it builds wherever a C++17 compiler is.
 ``-ffp-contract=off`` keeps every float32 operation rounded on its own, as
 the twins' exactness needs (never ``-ffast-math``).  Where the build or
 the load fails, ``available()`` is false, ``build_error()`` says why in
@@ -22,14 +21,13 @@ path and the JAX package's own library.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from image_processor_pipeline_tpu_torch.utils import native_build
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "native" / "ipp_cpu.cpp"
@@ -47,48 +45,12 @@ _lib = None
 _error: Optional[str] = None
 
 
-def _stale() -> bool:
-    return (not _SO.exists()
-            or SOURCE.stat().st_mtime > _SO.stat().st_mtime)
-
-
-def _build() -> None:
-    """Compile the library under an flock, then rename it into place."""
-    BUILD.mkdir(exist_ok=True)
-    with open(BUILD / ".cpu.lock", "w") as lk:
-        fcntl.flock(lk, fcntl.LOCK_EX)
-        if not _stale():
-            return
-        tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
-        cxx = os.environ.get("CXX", "g++")
-        try:
-            res = subprocess.run(
-                [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *LIBS],
-                capture_output=True, text=True, timeout=300)
-        except (OSError, subprocess.TimeoutExpired) as e:
-            raise RuntimeError(f"{cxx}: {e}") from None
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"{cxx} exited with code {res.returncode}:\n"
-                f"{res.stderr.strip()}")
-        os.replace(tmp, _SO)
-
-
 def _load():
     global _lib, _error
     with _lock:
-        if _lib is not None or _error is not None:
-            return _lib
-        try:
-            if _stale():
-                _build()
-            lib = ctypes.CDLL(str(_SO))
-            _bind_symbols(lib)
-        except (RuntimeError, OSError, AttributeError) as e:
-            _error = str(e)
-            return None
-        _lib = lib
+        if _lib is None and _error is None:
+            _lib, _error = native_build.load(SOURCE, _SO, CXX_FLAGS, LIBS,
+                                             _bind_symbols)
         return _lib
 
 

@@ -27,7 +27,8 @@ card is there; ``device="cpu"`` runs the same functions on CPU tensors.
 ``options["device_decode"]`` and ``options["device_encode"]`` ("auto":
 on when the step's device is a CUDA card) ship sparse JPEG coefficients
 between host and device instead of pixels (ops/jpeg.py); an explicit True
-raises when the native IO engine they need could not be built.
+raises when the JPEG coefficient coder they need (io/jcoef.py) could not
+be built, and "auto" then takes the pixel path.
 ``mesh`` splits every batch over the devices of a mesh
 (parallel/mesh.py), ``host_sharded`` splits a step's items over the
 processes of a ``torch.distributed`` group (parallel/distributed.py),
@@ -200,14 +201,14 @@ class ProcessingStep:
         codec = [n for n in ("device_decode", "device_encode")
                  if self.options.get(n) is True]
         if codec:
-            from image_processor_pipeline_tpu_torch.io import native
+            from image_processor_pipeline_tpu_torch.io import jcoef
 
-            if not native.available():
+            if not jcoef.available():
                 raise RuntimeError(
                     f"step {self.name!r}: "
                     + ", ".join(f"options[{n!r}]=True" for n in codec)
-                    + " needs the native IO engine, which is unavailable: "
-                    + str(native.build_error()))
+                    + " needs the JPEG coefficient coder, which is "
+                    "unavailable: " + str(jcoef.build_error()))
 
     def _use_native(self) -> bool:
         """The step runs its transform's C++ twin: the transform has one

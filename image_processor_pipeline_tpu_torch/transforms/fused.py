@@ -496,7 +496,7 @@ class FusedChain(BatchTransform):
     # half (YCbCr, 4:2:0 downsample, islow FDCT, quantization —
     # ops/jpeg.py:encode_start_sparse) runs on the device and sparse
     # quantized coefficients come back; the saver thread does entropy
-    # encode only (native/ipp_io.cpp:ipp_write_jpeg_coefs_sparse).  Files
+    # encode only (native/ipp_jcoef.cpp:ipp_write_jpeg_coefs_sparse).  Files
     # are byte-identical to the pixel path at the final stage's anchored
     # quality.
 

@@ -39,7 +39,7 @@ from image_processor_pipeline_tpu_torch.transforms.base import (
     host_arrays,
     to_device,
 )
-from image_processor_pipeline_tpu_torch.io import native as io_native
+from image_processor_pipeline_tpu_torch.io import jcoef
 from image_processor_pipeline_tpu_torch.ops import geometry
 from image_processor_pipeline_tpu_torch.ops import jpeg as djpeg
 from image_processor_pipeline_tpu_torch.io.images import (
@@ -124,7 +124,7 @@ class GenerateSymmetries(BatchTransform):
     save_needs_image = True
 
     def needs_host_image(self, chunk, options, device) -> bool:
-        if not io_native.available():
+        if not jcoef.available():
             return True
         if not djpeg.device_encode_enabled(options, self, device):
             return True
@@ -211,7 +211,7 @@ class GenerateSymmetries(BatchTransform):
 
     def _shrink_encode(self, out_dev, inp, chunk, options, n_valid,
                        host_missing=False):
-        if not io_native.available():
+        if not jcoef.available():
             return None
         sizes = np.stack([np.asarray(it["size"]) for it in chunk])
         h_np = sizes[:, 0].astype(np.int32)
@@ -223,6 +223,10 @@ class GenerateSymmetries(BatchTransform):
             # symmetry.py saves it via cv2.imwrite like the flips) — on
             # the device it's just one more FDCT plane.  Skipped when
             # neither include_original nor the pool can ever select 'o'.
+            # Its coefficients are fetched, but the input's pixels never
+            # count in d2h_bytes_full (the canvas is private), so on small
+            # items the step may fetch more than it counts as full, as the
+            # JAX engine's does.
             planes["o"] = inp
         if not planes:
             return None

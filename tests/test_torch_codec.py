@@ -23,9 +23,11 @@ import image_processor_pipeline_tpu.transforms.fused as jfused
 import image_processor_pipeline_tpu_torch as tpkg
 import image_processor_pipeline_tpu_torch.transforms as ttransforms
 import image_processor_pipeline_tpu_torch.transforms.fused as tfused
-from image_processor_pipeline_tpu_torch.io import native
+from image_processor_pipeline_tpu_torch.io import jcoef, native
 from image_processor_pipeline_tpu_torch.ops import jpeg as tjpeg
-from torch_port_data import make_image, make_labels, reports
+from torch_port_data import (JPEG_PIPELINE_J_D2H, make_image, make_labels,
+                             make_jpeg_pipeline_j_data, reports,
+                             run_jpeg_pipeline_j)
 
 ON = {"device_decode": True, "device_encode": True}
 OFF = {"device_decode": False, "device_encode": False}
@@ -43,6 +45,7 @@ def data(tmp_path_factory):
     4:4:4 one (the sparse reader's -3 retry with full chroma caps) and a
     progressive one."""
     assert native.available(), native.build_error()
+    assert jcoef.available(), jcoef.build_error()
     root = tmp_path_factory.mktemp("codec")
     (root / "imgs").mkdir()
     (root / "labels").mkdir()
@@ -203,20 +206,51 @@ def test_transports_ran(runs):
         assert calls.get("encode_start_sparse", 0) > 0, pname
 
 
+def test_small_items_d2h_counters_equal_the_jax_engines(tmp_path):
+    """The card's pipeline J (tests/test_torch_cuda.py, 50-150 px items)
+    through the JAX engine and the port on the CPU with the transports
+    forced on: the same files, byte for byte, and each step's
+    (d2h_bytes_full, d2h_bytes_fetched) is JPEG_PIPELINE_J_D2H in both.
+    crop and rot fetch fewer bytes than their pixels; sym fetches more,
+    in the JAX engine as in the port."""
+    jpg, lab = make_jpeg_pipeline_j_data(tmp_path)
+    steps = {}
+    for tag in ENGINES:
+        pkg, transforms, _, kw = ENGINES[tag]
+        kw = dict(kw)
+        options = dict(kw.pop("options", {}), **ON)
+        steps[tag] = run_jpeg_pipeline_j(pkg, transforms, jpg, lab,
+                                         tmp_path / tag, options, **kw)
+    for d in ("crops", "labels", "rot", "sym"):
+        assert files(tmp_path / "t" / d) == files(tmp_path / "j" / d), d
+    for tag in ENGINES:
+        got = {s.name: (s.metrics.d2h_bytes_full, s.metrics.d2h_bytes_fetched)
+               for s in steps[tag]}
+        assert got == JPEG_PIPELINE_J_D2H, tag
+    full, fetched = JPEG_PIPELINE_J_D2H["sym"]
+    assert fetched > full
+
+
 def test_without_the_library_auto_falls_back_and_true_raises(
         data, monkeypatch, tmp_path):
-    """With the native library unavailable, "auto" on the card resolves to
-    the host path (the transports need the library's entropy coder), and
-    an explicit True raises naming build_error()."""
-    monkeypatch.setattr(native, "available", lambda: False)
-    monkeypatch.setattr(native, "build_error",
-                        lambda: "png.h: No such file or directory")
-    with pytest.raises(RuntimeError, match="png.h"):
+    """With the coefficient coder unavailable, "auto" on the card resolves
+    to the host path (the transports need its entropy coder), and an
+    explicit True raises naming build_error()."""
+    monkeypatch.setattr(jcoef, "available", lambda: False)
+    monkeypatch.setattr(jcoef, "build_error",
+                        lambda: "g++: No such file or directory")
+    with pytest.raises(RuntimeError, match="g[+][+]: No such file"):
         step("t", "crop", ttransforms.SquareCropAroundBBox(),
              {"device_encode": True})
     sym = ttransforms.GenerateSymmetries()
     chunk = [{"_decode": (str(data / "imgs" / "im_0.jpg"), "RGB", False)}]
     assert sym.needs_host_image(chunk, {}, "cuda")
+    from image_processor_pipeline_tpu_torch.io import images as timages
+
+    item = {"size": np.asarray([96, 128], np.int32), "canvas": (96, 128),
+            "_decode": chunk[0]["_decode"]}
+    assert timages._decode_group_device([item], (96, 128), "RGB",
+                                        "cpu") is None
 
 
 def test_hybrid_decode_ladder_equals_jax_and_the_host_decode(tmp_path):

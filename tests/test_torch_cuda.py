@@ -337,10 +337,9 @@ def test_rev_probe_unaligned_rows_take_the_word_path(cuda_device):
 # -- the engine's steps on the card ---------------------------------------------
 
 def _engine_dataset(root, n=12):
-    from torch_port_data import make_dataset
+    from torch_port_data import ENGINE_SIZES, make_dataset
 
-    return make_dataset(root / "data", n, seed=17,
-                        sizes=((60, 90), (90, 60), (72, 72), (50, 150)))
+    return make_dataset(root / "data", n, seed=17, sizes=ENGINE_SIZES)
 
 
 def _decoded(directory):
@@ -1219,47 +1218,28 @@ def test_pipeline_j_batches_shrink_on_card_as_on_the_cpu(cuda_device,
 def test_pipeline_j_with_transports_on_card_writes_the_cpu_files(
         cuda_device, tmp_path):
     """Pipeline J over JPEGs with the transports left on "auto" on the card
-    (on, where the native IO engine is built) and forced on on the CPU:
-    the same files, byte for byte, and the coefficients crossed the link.
-    Where the engine cannot be built "auto" is the host codec and the
-    same files must come out."""
-    from PIL import Image
+    (on, where the JPEG coefficient coder is built) and forced on on the
+    CPU: the same files, byte for byte, and the coefficients crossed the
+    link, each step fetching what the JAX engine fetches with the
+    transports on (JPEG_PIPELINE_J_D2H, which tests/test_torch_codec.py
+    holds against it).  Where the coder cannot be built "auto" is the host
+    codec and the same files must come out."""
+    import image_processor_pipeline_tpu_torch as tpkg
+    import image_processor_pipeline_tpu_torch.transforms as ttransforms
+    from image_processor_pipeline_tpu_torch.io import jcoef
+    from torch_port_data import (JPEG_PIPELINE_J_D2H,
+                                 make_jpeg_pipeline_j_data,
+                                 run_jpeg_pipeline_j)
 
-    from image_processor_pipeline_tpu_torch import ProcessingStep
-    from image_processor_pipeline_tpu_torch.io import native
-    from image_processor_pipeline_tpu_torch.transforms import (
-        GenerateSymmetries, RandomRotations, SquareCropAroundBBox)
-
-    imgs, labels = _engine_dataset(tmp_path)
-    (tmp_path / "jpg").mkdir()
-    for p in sorted(imgs.iterdir()):
-        Image.open(p).convert("RGB").save(tmp_path / "jpg" / f"{p.stem}.jpg",
-                                          quality=90)
-    (tmp_path / "lab").mkdir()
-    for p in sorted(labels.iterdir()):
-        (tmp_path / "lab" / p.name).write_text(p.read_text())
+    jpg, lab = make_jpeg_pipeline_j_data(tmp_path)
     steps = {}
     for label, device, codec in (("card", cuda_device, {}), ("cpu", "cpu", {
-            "device_decode": native.available(),
-            "device_encode": native.available()})):
-        root = tmp_path / label
-        steps[label] = [ProcessingStep(
-            name, transform, input_dirs=ins, output_dirs=outs, seed=seed,
-            workers=2, device=device, options=dict(codec, **options),
-            pairing_method=pairing)
-            for name, transform, ins, outs, seed, options, pairing in (
-                ("crop", SquareCropAroundBBox(),
-                 [tmp_path / "jpg", tmp_path / "lab"],
-                 [root / "crops", root / "labels"], 3, {}, "zip"),
-                ("rot", RandomRotations(), [root / "crops"], [root / "rot"],
-                 4, {"num_rotations": 4, "method": "shear",
-                     "output_format": "jpeg"}, "one_input"),
-                ("sym", GenerateSymmetries(), [root / "rot"], [root / "sym"],
-                 5, {}, "one_input"))]
+            "device_decode": jcoef.available(),
+            "device_encode": jcoef.available()})):
         kernels.reset_launch_counts()
-        for step in steps[label]:
-            assert step.run(progress=False) == {
-                "Success": len(step.process_logs)}
+        steps[label] = run_jpeg_pipeline_j(tpkg, ttransforms, jpg, lab,
+                                           tmp_path / label, codec,
+                                           device=device)
         if torch.device(device).type == "cuda":
             assert kernels.launch_counts["shear_rotate_packed"] \
                 == steps[label][1].metrics.batches
@@ -1269,10 +1249,12 @@ def test_pipeline_j_with_transports_on_card_writes_the_cpu_files(
         want = {p.name: p.read_bytes()
                 for p in sorted((tmp_path / "cpu" / d).iterdir())}
         assert got == want, d
-    for step in steps["card"]:
-        m = step.metrics
-        if native.available() and torch.device(cuda_device).type == "cuda":
-            assert 0 < m.d2h_bytes_fetched < m.d2h_bytes_full, step.name
+    if jcoef.available() and torch.device(cuda_device).type == "cuda":
+        for label in steps:
+            got = {s.name: (s.metrics.d2h_bytes_full,
+                            s.metrics.d2h_bytes_fetched)
+                   for s in steps[label]}
+            assert got == JPEG_PIPELINE_J_D2H, label
 
 
 # -- meshes on the card (parallel/mesh.py, ProcessingStep(mesh=...)) ---------

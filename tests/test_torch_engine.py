@@ -511,16 +511,16 @@ def test_ported_options_are_kept_or_raise_naming_what_is_missing(
         assert getattr(step, named) == kwargs[named]
         return
     if named in ("device_decode", "device_encode"):
-        # ported: an explicit True is taken where the native IO engine is
-        # built, and raises naming why where it is not
-        from image_processor_pipeline_tpu_torch.io import native
+        # ported: an explicit True is taken where the JPEG coefficient
+        # coder is built, and raises naming why where it is not
+        from image_processor_pipeline_tpu_torch.io import jcoef
 
-        assert native.available()
+        assert jcoef.available()
         ProcessingStep("s", SquareCropAroundBBox(), **kwargs)
-        monkeypatch.setattr(native, "available", lambda: False)
-        monkeypatch.setattr(native, "build_error",
-                            lambda: "jpeglib.h: No such file or directory")
-        with pytest.raises(RuntimeError, match=f"{named}.*jpeglib.h"):
+        monkeypatch.setattr(jcoef, "available", lambda: False)
+        monkeypatch.setattr(jcoef, "build_error",
+                            lambda: "g++: No such file or directory")
+        with pytest.raises(RuntimeError, match=f"{named}.*g[+][+]: No such"):
             ProcessingStep("s", SquareCropAroundBBox(), **kwargs)
         return
     # ported: the step keeps the option and runs the transform's C++ twin,

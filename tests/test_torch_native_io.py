@@ -1,9 +1,11 @@
 """The port's native IO engine (image_processor_pipeline_tpu_torch/native/
 ipp_io.cpp through io/native.py) against the JAX package's, both built
 here: the same JPEG and PNG-parity bytes (and cv2's and Pillow's where the
-JAX package's tests pin those), the same decoded pixels, coefficient
-arrays and coefficient-written files, and the three faults of the JAX
-host codec (F4) not copied."""
+JAX package's tests pin those), the same decoded pixels, and the three
+faults of the JAX host codec (F4) not copied; and the port's coefficient
+coder (native/ipp_jcoef.cpp through io/jcoef.py, no codec library)
+against the JAX library's libjpeg coefficient functions: the same
+coefficient arrays and coefficient-written files."""
 
 from pathlib import Path
 
@@ -12,7 +14,7 @@ import pytest
 from PIL import Image
 
 from image_processor_pipeline_tpu.io import native as jnative
-from image_processor_pipeline_tpu_torch.io import native
+from image_processor_pipeline_tpu_torch.io import jcoef, native
 from torch_port_data import make_image
 
 
@@ -21,6 +23,7 @@ def built():
     assert native.available(), native.build_error()
     assert jnative.available()
     assert native.build_error() is None
+    assert jcoef.available(), jcoef.build_error()
 
 
 @pytest.fixture(scope="module")
@@ -118,13 +121,13 @@ def test_coefficient_readers_equal(jpegs):
     cap small enough that the noise file overflows (-6)."""
     cap = (9, 11)
     for cap_c in (None, cap):
-        a = native.read_jpeg_coefs_batch(jpegs, cap, cap_c, 3)
+        a = jcoef.read_jpeg_coefs_batch(jpegs, cap, cap_c, 3)
         b = jnative.read_jpeg_coefs_batch(jpegs, cap, cap_c, 3)
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
         for cap_nnz in (None, 900):
-            a = native.read_jpeg_coefs_sparse_batch(jpegs, cap, cap_c,
-                                                    cap_nnz, 2)
+            a = jcoef.read_jpeg_coefs_sparse_batch(jpegs, cap, cap_c,
+                                                   cap_nnz, 2)
             b = jnative.read_jpeg_coefs_sparse_batch(jpegs, cap, cap_c,
                                                      cap_nnz, 2)
             for x, y in zip(a, b):
@@ -132,7 +135,7 @@ def test_coefficient_readers_equal(jpegs):
         codes = {min(int(v), 0) for v in a[4][:, 0]}
         assert codes >= {0, -6} | ({-3} if cap_c is None else set())
         for p in jpegs:
-            x = native.read_jpeg_coefs(p, cap, cap_c)
+            x = jcoef.read_jpeg_coefs(p, cap, cap_c)
             y = jnative.read_jpeg_coefs(p, cap, cap_c)
             assert (x is None) == (y is None)
             for u, v in zip(x or (), y or ()):
@@ -147,9 +150,9 @@ def test_write_jpeg_coefs_files_equal(tmp_path, jpegs):
     rgb = make_image(np.random.default_rng(7), 45, 70)
     assert native.encode_jpeg(src, rgb, 75)
     cap, cap_c = (6, 9), (3, 5)
-    cy, cc, _, info = native.read_jpeg_coefs(src, cap, cap_c)
+    cy, cc, _, info = jcoef.read_jpeg_coefs(src, cap, cap_c)
     h, w = int(info[0]), int(info[1])
-    for lib, name in ((native, "o"), (jnative, "t")):
+    for lib, name in ((jcoef, "o"), (jnative, "t")):
         assert lib.write_jpeg_coefs(tmp_path / f"{name}_d.jpg", cy, cc, h, w,
                                     75)
     flat = np.concatenate([cy.ravel(), cc.ravel()])
@@ -158,7 +161,7 @@ def test_write_jpeg_coefs_files_equal(tmp_path, jpegs):
     val = np.zeros((2, 4096), np.int16)
     idx[:, :len(nz)], val[:, :len(nz)] = nz, flat[nz]
     nnz = np.array([len(nz), 5000], np.int32)          # item 1 overflows
-    for lib, name in ((native, "o"), (jnative, "t")):
+    for lib, name in ((jcoef, "o"), (jnative, "t")):
         assert lib.write_jpeg_coefs_sparse(
             tmp_path / f"{name}_s.jpg", idx[0], val[0], len(nz), cap, cap_c,
             h, w, 75) == 0

@@ -58,6 +58,60 @@ def make_dataset(root: Path, n: int, seed: int,
     return root / "imgs", root / "labels"
 
 
+#: the sizes of the card tests' engine dataset (tests/test_torch_cuda.py)
+ENGINE_SIZES = ((60, 90), (90, 60), (72, 72), (50, 150))
+
+
+def make_jpeg_pipeline_j_data(root: Path, n: int = 12):
+    """The card's pipeline J dataset: the card tests' engine dataset (seed
+    17) saved by Pillow as JPEG at q90 under root/jpg, its labels under
+    root/lab."""
+    imgs, labels = make_dataset(root / "data", n, seed=17,
+                                sizes=ENGINE_SIZES)
+    (root / "jpg").mkdir()
+    (root / "lab").mkdir()
+    for p in sorted(imgs.iterdir()):
+        Image.open(p).convert("RGB").save(root / "jpg" / f"{p.stem}.jpg",
+                                          quality=90)
+    for p in sorted(labels.iterdir()):
+        (root / "lab" / p.name).write_text(p.read_text())
+    return root / "jpg", root / "lab"
+
+
+#: (d2h_bytes_full, d2h_bytes_fetched) of each step of
+#: ``run_jpeg_pipeline_j`` with the transports on, as the JAX engine
+#: counts them on the CPU (tests/test_torch_codec.py holds it so); the
+#: card must count the same.  The symmetry step fetches 1,024 bytes more
+#: than its pixels: the coefficients of its 'o' plane (a re-encode of the
+#: input) are fetched but the input's pixels are not counted, and each
+#: batch's fetch is rounded up to 4096 coefficients a row.
+JPEG_PIPELINE_J_D2H = {"crop": (1206788, 518580), "rot": (3146304, 1180224),
+                       "sym": (9437184, 9438208)}
+
+
+def run_jpeg_pipeline_j(pkg, transforms, jpg, lab, root, options, **kw):
+    """crop_square (seed 3), rotations (4 a crop by shear, output_format
+    "jpeg", seed 4) and symmetry (seed 5) over ``make_jpeg_pipeline_j_data``
+    through ``pkg``'s engine on two workers, each step with ``options`` and
+    ``kw``; every item must be a Success.  Returns the three steps."""
+    steps = [pkg.ProcessingStep(
+        name, transform, input_dirs=ins, output_dirs=outs, seed=seed,
+        workers=2, options=dict(options, **opts), pairing_method=pairing,
+        **kw)
+        for name, transform, ins, outs, seed, opts, pairing in (
+            ("crop", transforms.SquareCropAroundBBox(), [jpg, lab],
+             [root / "crops", root / "labels"], 3, {}, "zip"),
+            ("rot", transforms.RandomRotations(), [root / "crops"],
+             [root / "rot"], 4, {"num_rotations": 4, "method": "shear",
+                                 "output_format": "jpeg"}, "one_input"),
+            ("sym", transforms.GenerateSymmetries(), [root / "rot"],
+             [root / "sym"], 5, {}, "one_input"))]
+    for step in steps:
+        assert step.run(progress=False) == {
+            "Success": len(step.process_logs)}, step.name
+    return steps
+
+
 def reports(root):
     """Every step's report entries under ``root`` with the run's root taken
     out, by report file name."""
