@@ -63,6 +63,7 @@ from image_processor_pipeline_tpu_torch.ops.augment import (
     pack_rgba,
 )
 from image_processor_pipeline_tpu_torch.ops.rotate import shear_rotate_crop
+from image_processor_pipeline_tpu_torch.utils import profiling
 
 CROP = 512
 
@@ -181,17 +182,38 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
                   rotation: str = "cuda_full"):
     """Batched chain: [B, H, W, 3|4] uint8 → [B, crop, crop, 4] uint8 RGBA
     on the images' device.  xywhn: [B, 4] normalized bbox; seeds: [B]
-    non-negative integers (host draws)."""
+    non-negative integers (host draws).
+
+    With the process's recorder on (``utils.profiling.recording``, or a
+    torch.profiler session collecting) a call is the span ``chain.call``
+    around ``chain.draws``, ``chain.shifts``, ``chain.h2d`` and
+    ``chain.launch``, and adds the arrays it copies to the images' device
+    to the counter ``chain.h2d_copies``."""
     check_mode(rotation)
     dev = images.device
-    y0, x0, angles = _crop_params(images.shape[1:3], xywhn, seeds, crop)
-    flips, prms = _flip_and_params(seeds)
-    # the shift vectors from the host's angles, so that every device and
-    # every mode gets the same ones (the card's tanf/sinf move a shift on
-    # a few angles in 10^4)
-    shifts = geometry.shear_params(torch.from_numpy(angles), crop)
-    y0, x0, flips, prms, *shifts = (torch.as_tensor(a, device=dev)
-                                    for a in (y0, x0, flips, prms, *shifts))
+    with profiling.span("chain.call"):
+        with profiling.span("chain.draws"):
+            y0, x0, angles = _crop_params(images.shape[1:3], xywhn, seeds,
+                                          crop)
+            flips, prms = _flip_and_params(seeds)
+        with profiling.span("chain.shifts"):
+            # the shift vectors from the host's angles, so that every
+            # device and every mode gets the same ones (the card's tanf/
+            # sinf move a shift on a few angles in 10^4)
+            shifts = geometry.shear_params(torch.from_numpy(angles), crop)
+        with profiling.span("chain.h2d"):
+            arrays = (y0, x0, flips, prms, *shifts)
+            profiling.count("chain.h2d_copies", len(arrays))
+            y0, x0, flips, prms, *shifts = (torch.as_tensor(a, device=dev)
+                                            for a in arrays)
+        with profiling.span("chain.launch"):
+            return _launch(images, y0, x0, angles, shifts, prms, flips,
+                           crop, rotation)
+
+
+def _launch(images, y0, x0, angles, shifts, prms, flips, crop, rotation):
+    """The mode's device work on the drawn parameters, on the images'
+    device."""
     if rotation == "cuda_full":
         # the kernel reads the uint8 canvas itself: no packing pass
         return augment_fused_full(images.contiguous(), y0, x0, None, prms,
