@@ -5,9 +5,11 @@ image_processor_pipeline_tpu/models/chains.py).
   HSV color-mask filter → photometric enhance (brightness/contrast/color +
   per-channel gain), RGBA out.
 
-The per-item draws are made on the host by ``random`` (bit-exact to the JAX
-package's ``jax.random`` draws for the same seeds), vectorised over the
-batch; the pixels stay on the device.  Modes, each with the counterpart
+The per-item draws are made on the host, for the whole batch in one call of
+the native pass ``ops/native_draws.py`` (``native/ipp_draws.cpp``) each,
+or by its numpy twin ``random`` where that library did not build; both
+are bit-exact to the JAX package's ``jax.random`` draws for the same
+seeds.  The pixels stay on the device.  Modes, each with the counterpart
 in the JAX package whose output it equals:
 
   'cuda_full'       crop → flip → rotate → mask → enhance in one
@@ -51,7 +53,8 @@ from torch import nn
 from image_processor_pipeline_tpu_torch import random as jrandom
 from image_processor_pipeline_tpu_torch.ops import bbox as bbox_ops
 from image_processor_pipeline_tpu_torch.ops import color as color_ops
-from image_processor_pipeline_tpu_torch.ops import geometry, photometric
+from image_processor_pipeline_tpu_torch.ops import geometry, native_draws
+from image_processor_pipeline_tpu_torch.ops import photometric
 from image_processor_pipeline_tpu_torch.ops.augment import (
     _crop,
     augment_finish_reference,
@@ -126,8 +129,16 @@ def _seeds(seeds):
 def _crop_params(shape, xywhn, seeds, crop: int = CROP):
     """Random bbox-containing crop placement and rotation angle for a batch:
     (y0 [B] int32, x0 [B] int32, angle [B] float32) as numpy, the JAX
-    function's draws for the same seeds.  shape: (H, W) of the canvas."""
+    function's draws for the same seeds.  shape: (H, W) of the canvas.
+    One native call when ``native_draws`` built (counted as
+    ``chain.draws_native``), else ``random``'s numpy draws."""
     H, W = int(shape[0]), int(shape[1])
+    if native_draws.available():
+        if isinstance(xywhn, torch.Tensor):
+            xywhn = xywhn.cpu().to(torch.float32).numpy()
+        draws = native_draws.crop_draws(_seeds(seeds), xywhn, H, W, crop)
+        profiling.count("chain.draws_native")
+        return draws
     keys = jrandom.split(jrandom.PRNGKey(_seeds(seeds)), 3)
     xyxy = bbox_ops.xywhn2xyxy(torch.as_tensor(xywhn).cpu(), float(W),
                                float(H))
@@ -144,7 +155,13 @@ def _crop_params(shape, xywhn, seeds, crop: int = CROP):
 
 def _flip_and_params(seeds):
     """Per-item user flip code [B] int32 and enhance parameters [B, 8]
-    float32 (brightness, contrast, color, gain r/g/b, 0, 0) as numpy."""
+    float32 (brightness, contrast, color, gain r/g/b, 0, 0) as numpy.  One
+    native call when ``native_draws`` built (counted as
+    ``chain.draws_native``), else ``random``'s numpy draws."""
+    if native_draws.available():
+        draws = native_draws.flip_draws(_seeds(seeds))
+        profiling.count("chain.draws_native")
+        return draws
     keys = jrandom.split(jrandom.PRNGKey(_seeds(seeds)), 5)
     flips = jrandom.randint(keys[:, 3], (), 0, 4)
     kb, kc, kcol, krgb = np.moveaxis(jrandom.split(keys[:, 4], 4), -2, 0)
@@ -188,7 +205,8 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
     torch.profiler session collecting) a call is the span ``chain.call``
     around ``chain.draws``, ``chain.shifts``, ``chain.h2d`` and
     ``chain.launch``, and adds the arrays it copies to the images' device
-    to the counter ``chain.h2d_copies``."""
+    to the counter ``chain.h2d_copies`` and each draw function the native
+    pass served to ``chain.draws_native``."""
     check_mode(rotation)
     dev = images.device
     with profiling.span("chain.call"):

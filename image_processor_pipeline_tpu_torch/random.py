@@ -2,11 +2,15 @@
 ``jax_default_prng_impl=threefry2x32`` and
 ``jax_threefry_partitionable=True``).
 
-The chain's draws are O(B) scalars per batch, so they are made on the host in
-numpy ``uint32`` arithmetic (which wraps like XLA's) and only their results
-go to the device.  A key is a ``uint32`` array of shape ``[..., 2]``; every
-function here is vectorised over the leading key axes, so one call draws for
-a whole batch of per-item keys.
+Draws are O(B) scalars per batch, so they are made on the host in numpy
+``uint32`` arithmetic (which wraps like XLA's) and only their results go to
+the device.  The flagship chain's draws (``models/chains.py:_crop_params``,
+``_flip_and_params``) are made by the native pass ``ops/native_draws.py``
+(``native/ipp_draws.cpp``) where its library built; this module is its
+numpy twin, which the tests hold it to bit for bit, and the chain's path
+without the library.  A key is a ``uint32`` array of shape ``[..., 2]``;
+every function here is vectorised over the leading key axes, so one call
+draws for a whole batch of per-item keys.
 
 ``uniform`` reproduces one rounding detail of JAX on the CPU: its
 ``floats * (maxval - minval) + minval`` runs under ``jit`` and XLA contracts

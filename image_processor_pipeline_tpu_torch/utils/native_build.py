@@ -1,5 +1,5 @@
 """Build and load one of the port's host C++ libraries (io/native.py,
-io/jcoef.py, ops/native_cpu.py): compile the source with ``g++`` (or
+io/jcoef.py, ops/native_cpu.py, ops/native_draws.py): compile the source with ``g++`` (or
 ``$CXX``) into the git-ignored ``_build/`` at first use, under an flock so
 that concurrent processes build it once, into a temp file renamed into
 place so that no process ever loads a half-written library; rebuild it

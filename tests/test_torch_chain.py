@@ -16,6 +16,8 @@ from image_processor_pipeline_tpu.ops import geometry as jgeo
 from image_processor_pipeline_tpu_torch import interop, kernels
 from image_processor_pipeline_tpu_torch.models import chains as tchains
 from image_processor_pipeline_tpu_torch.ops import geometry as tgeo
+from image_processor_pipeline_tpu_torch.ops import native_draws
+from image_processor_pipeline_tpu_torch.utils import profiling
 
 PORT_MODULES = (
     "image_processor_pipeline_tpu_torch",
@@ -55,6 +57,7 @@ PORT_MODULES = (
     "image_processor_pipeline_tpu_torch.ops.jpeg",
     "image_processor_pipeline_tpu_torch.io.native",
     "image_processor_pipeline_tpu_torch.ops.native_cpu",
+    "image_processor_pipeline_tpu_torch.ops.native_draws",
     "image_processor_pipeline_tpu_torch.io.images",
     "image_processor_pipeline_tpu_torch.config",
     "image_processor_pipeline_tpu_torch.__main__",
@@ -227,6 +230,50 @@ def test_cuda_shear_reads_the_canvas_without_a_crop_index(monkeypatch,
     assert crops == [] and all(n == 0 for n in kernels.launch_counts.values())
     want = tchains.augment_chain(images, xywhn, seeds, 64, "shear")
     assert crops == [1] and torch.equal(got, want)
+
+
+@pytest.fixture
+def fresh_recorder():
+    rec = profiling.RECORDER
+    rec.reset()
+    yield rec
+    rec.reset()
+
+
+def test_the_native_draws_are_counted_and_change_no_byte(monkeypatch,
+                                                         fresh_recorder):
+    """One call counts ``chain.draws_native`` twice (both draw functions
+    served by the library) and, with the library taken away, not at all;
+    the output bytes are the same both ways."""
+    assert native_draws.available(), native_draws.build_error()
+    images, xywhn, seeds = chain_inputs(3, 96, seed=21)
+    images = torch.as_tensor(images)
+    with profiling.recording() as rec:
+        native = tchains.augment_chain(images, xywhn, seeds, 64)
+    assert rec.counters["chain.draws_native"] == 2
+    rec.reset()
+    monkeypatch.setattr(native_draws, "available", lambda: False)
+    with profiling.recording() as rec:
+        fallback = tchains.augment_chain(images, xywhn, seeds, 64)
+    assert "chain.draws_native" not in rec.counters
+    assert rec.counters["chain.h2d_copies"] == 7
+    assert torch.equal(native, fallback)
+
+
+@pytest.mark.parametrize("mode", ["cuda_full", "shear", "gather"])
+def test_each_draw_function_runs_once_a_call(monkeypatch, mode):
+    """The two draw functions are module globals called once each a call
+    (port_bench/drivers/chain.py times them by those names)."""
+    calls = []
+    for name in ("_crop_params", "_flip_and_params"):
+        real = getattr(tchains, name)
+        monkeypatch.setattr(tchains, name, lambda *a, _n=name, _f=real, **k:
+                            calls.append(_n) or _f(*a, **k))
+    images, xywhn, seeds = chain_inputs(2, 96, seed=22)
+    for i in range(1, 3):
+        tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                              mode)
+        assert calls == ["_crop_params", "_flip_and_params"] * i
 
 
 # 'gather' makes no shift vectors: its cos and sin come from the host's

@@ -11,9 +11,19 @@ import pytest
 import torch
 
 from image_processor_pipeline_tpu_torch.models import chains
+from image_processor_pipeline_tpu_torch.ops import native_draws
 from image_processor_pipeline_tpu_torch.utils import profiling
 
 PHASES = ("chain.draws", "chain.shifts", "chain.h2d", "chain.launch")
+
+
+def call_counters(calls=1):
+    """The counters of ``calls`` chain calls: seven copies each, and both
+    draw functions served by the native pass where its library built."""
+    counters = {"chain.h2d_copies": 7 * calls}
+    if native_draws.available():
+        counters["chain.draws_native"] = 2 * calls
+    return counters
 
 
 @pytest.fixture(autouse=True)
@@ -72,7 +82,7 @@ def test_one_call_is_one_chain_call_around_its_four_phases(
         assert call.start_ns <= r.start_ns <= r.end_ns <= call.end_ns
     assert all(a.end_ns <= b.start_ns for a, b in zip(children,
                                                       children[1:]))
-    assert rec.counters == {"chain.h2d_copies": 7}
+    assert rec.counters == call_counters()
     assert rec.counts == {name: 1 for name in PHASES + ("chain.call",)}
     assert rec.totals["chain.call"] >= sum(rec.totals[n] for n in PHASES)
 
@@ -190,6 +200,6 @@ def test_a_profiler_session_records_the_chain_without_ranges(
     assert not fresh_recorder.on
     assert fresh_recorder.counts == {name: 1
                                      for name in PHASES + ("chain.call",)}
-    assert fresh_recorder.counters == {"chain.h2d_copies": 7}
+    assert fresh_recorder.counters == call_counters()
     chains.augment_chain(*chain_args(), 64, "cuda_full")
     assert fresh_recorder.counts["chain.call"] == 1

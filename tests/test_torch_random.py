@@ -5,12 +5,26 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from image_processor_pipeline_tpu.models import chains as jchains
 from image_processor_pipeline_tpu_torch import random as trandom
 from image_processor_pipeline_tpu_torch.models import chains as tchains
+from image_processor_pipeline_tpu_torch.ops import native_draws
 
 SEEDS = np.arange(10_000, dtype=np.uint32)
+
+
+@pytest.fixture(params=["native", "numpy"])
+def draw_path(request, monkeypatch):
+    """The chain's draws on one path: one native call (ops/native_draws.py,
+    built at first use, here with g++), or random.py's numpy draws, which
+    the chain takes with the library taken away."""
+    if request.param == "native":
+        assert native_draws.available(), native_draws.build_error()
+    else:
+        monkeypatch.setattr(native_draws, "available", lambda: False)
+    return request.param
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +93,7 @@ def test_uniform_single_rounding_is_needed(jkeys):
 
 
 @pytest.mark.parametrize("H,W,crop", [(96, 96, 64), (640, 640, 512)])
-def test_crop_params_match_jax(H, W, crop):
+def test_crop_params_match_jax(H, W, crop, draw_path):
     rng = np.random.default_rng(H)
     n = 2000
     seeds = np.arange(n, dtype=np.uint32) * 7 + 3
@@ -93,7 +107,7 @@ def test_crop_params_match_jax(H, W, crop):
         np.testing.assert_array_equal(g, np.asarray(w))
 
 
-def test_flip_and_params_match_jax():
+def test_flip_and_params_match_jax(draw_path):
     seeds = np.arange(2000, dtype=np.uint32) * 13 + 1
     want_f, want_p = jax.vmap(jchains._flip_and_params)(jnp.asarray(seeds))
     got_f, got_p = tchains._flip_and_params(seeds)
@@ -182,3 +196,97 @@ def test_bernoulli_is_uniform_below_p_in_float32(jkeys, p):
     np.testing.assert_array_equal(got, want)
     if 0 < p < 1:
         assert abs(got.mean() - p) < 0.02
+
+
+# -- the chain's native draws against their numpy twin -----------------------
+
+#: seeds at the edges of the key words: PRNGKey splits a seed into
+#: (seed >> 32, seed & 0xFFFFFFFF)
+EDGE_SEEDS = np.array([0, 2**32 - 1, 2**32, 2**63, 2**64 - 1], np.uint64)
+
+
+def numpy_draws(monkeypatch, fn, *args):
+    """``fn(*args)`` on random.py's numpy draws: the library taken away."""
+    with monkeypatch.context() as m:
+        m.setattr(native_draws, "available", lambda: False)
+        return fn(*args)
+
+
+def assert_same_draws(got, want):
+    """Same dtypes, shapes and bits (floats compared as uint32 views)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+def edge_batch(B, seed):
+    """B uint64 seeds led by EDGE_SEEDS, and boxes [B, 4] whose centres
+    and sides spill past the canvas: corners below zero (truncated toward
+    zero, so a corner in (-1, 0) gives 0), past the far edge, and boxes
+    wider than the crop, whose placement range is empty (minval back)."""
+    rng = np.random.default_rng(seed)
+    seeds = rng.integers(0, 2**64 - 1, B, dtype=np.uint64, endpoint=True)
+    n = min(B, len(EDGE_SEEDS))
+    seeds[:n] = EDGE_SEEDS[:n]
+    xywhn = np.concatenate([rng.uniform(-0.6, 1.6, (B, 2)),
+                            rng.uniform(0.0, 2.5, (B, 2))], axis=1)
+    # a quarter of the items just inside the near edge: corners in (-1, 1)
+    near = rng.random(B) < 0.25
+    xywhn[near, 2:] = rng.uniform(0.0, 0.5, (near.sum(), 2))
+    xywhn[near, :2] = xywhn[near, 2:] / 2 + rng.uniform(
+        -0.004, 0.004, (near.sum(), 2))
+    return seeds, xywhn.astype(np.float32)
+
+
+@pytest.mark.parametrize("B", [1, 16, 256, 1000])
+@pytest.mark.parametrize("crop,H,W", [(64, 64, 64), (64, 96, 80),
+                                      (512, 512, 512), (512, 640, 700)])
+def test_native_draws_equal_numpy(monkeypatch, B, crop, H, W):
+    assert native_draws.available(), native_draws.build_error()
+    seeds, xywhn = edge_batch(B, seed=B + crop + H + W)
+    got = tchains._crop_params((H, W), xywhn, seeds, crop)
+    want = numpy_draws(monkeypatch, tchains._crop_params, (H, W), xywhn,
+                       seeds, crop)
+    assert_same_draws(got, want)
+    if B >= 256:
+        y0, x0, _ = want
+        # both sides of the placement rule are exercised
+        assert (x0 == 0).any() and (x0 > 0).any() and (y0 > 0).any()
+    assert_same_draws(tchains._flip_and_params(seeds),
+                      numpy_draws(monkeypatch, tchains._flip_and_params,
+                                  seeds))
+
+
+def test_native_draws_equal_numpy_over_many_seeds(monkeypatch):
+    """10^5 seeds over the whole uint64 range, as torch tensors too."""
+    seeds, xywhn = edge_batch(100_000, seed=17)
+    want_c = numpy_draws(monkeypatch, tchains._crop_params, (640, 640),
+                         xywhn, seeds, 512)
+    want_f = numpy_draws(monkeypatch, tchains._flip_and_params, seeds)
+    assert_same_draws(tchains._crop_params((640, 640), xywhn, seeds, 512),
+                      want_c)
+    assert_same_draws(tchains._flip_and_params(seeds), want_f)
+    # int64 torch seeds below 2**63 and a float64 torch box tensor
+    low = seeds[seeds < 2**63]
+    sel = seeds < 2**63
+    got_c = tchains._crop_params(
+        (640, 640), torch.as_tensor(xywhn[sel].astype(np.float64)),
+        torch.as_tensor(low.astype(np.int64)), 512)
+    assert_same_draws(got_c, tuple(w[sel] for w in want_c))
+    assert_same_draws(
+        tchains._flip_and_params(torch.as_tensor(low.astype(np.int64))),
+        tuple(w[sel] for w in want_f))
+
+
+@pytest.mark.parametrize("bad,error", [
+    (np.array([1.0, 2.0]), TypeError), (np.array([3, -1]), ValueError),
+    (np.array([True, False]), TypeError)])
+def test_draws_check_the_seeds_on_both_paths(draw_path, bad, error):
+    xywhn = np.tile(np.float32([0.5, 0.5, 0.2, 0.2]), (len(bad), 1))
+    with pytest.raises(error):
+        tchains._crop_params((96, 96), xywhn, bad, 64)
+    with pytest.raises(error):
+        tchains._flip_and_params(bad)
+    with pytest.raises(error):
+        tchains._flip_and_params(torch.as_tensor(bad))
