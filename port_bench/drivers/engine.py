@@ -20,6 +20,7 @@ pixels for images, text for labels.
 from __future__ import annotations
 
 import importlib
+import resource
 import shutil
 import sys
 import tempfile
@@ -73,6 +74,10 @@ class State:
     saves: List[tuple] = field(default_factory=list)
     lock: threading.Lock = field(default_factory=threading.Lock)
     passes: List[Pass] = field(default_factory=list)
+    #: the process's CPU seconds (user + system, every thread) at the
+    #: window's start and at the end of its last pass
+    cpu_start: float = 0.0
+    cpu_end: float = 0.0
 
 
 def _count_saves(st: State, transform):
@@ -177,6 +182,11 @@ def _keep(st: State, p: Pass, root: Path):
     p.kept = [items[i][0] for i in chosen]
 
 
+def _cpu_seconds() -> float:
+    r = resource.getrusage(resource.RUSAGE_SELF)
+    return r.ru_utime + r.ru_stime
+
+
 def setup(seed: int, cfg, traffic, device) -> State:
     """Make the dataset and run one pass to build and warm up."""
     device = torch.device(device)
@@ -214,18 +224,21 @@ def window(st: State, seconds: float, trace: bool) -> Dict[str, Any]:
     start to the end of its last pass.  The harness's own work on the
     outputs (the sample kept, the rest deleted) waits until it closes."""
     t0 = time.perf_counter()
+    st.cpu_start = st.cpu_end = _cpu_seconds()
     deadline = t0 + seconds
     roots = []
     while time.perf_counter() < deadline:
         index = len(st.passes)
         root = st.root / f"pass{index}"
-        t = time.perf_counter()
+        t, cpu = time.perf_counter(), st.cpu_end
         p = _run_pass(st, index, root)
         t_end = time.perf_counter()
+        st.cpu_end = _cpu_seconds()
         walls = ", ".join(f"{sc['name']} {s['wall_seconds']:.3f}"
                           for sc, s in zip(st.cfg["steps"], p.steps))
         print(f"engine pass {index}: {t_end - t:.3f} s ({walls}), "
-              f"{p.images} images", file=sys.stderr)
+              f"{p.images} images, CPU {st.cpu_end - cpu:.3f} s",
+              file=sys.stderr)
         roots.append(root)
         st.passes.append(p)
     for p, root in zip(st.passes, roots):
@@ -235,10 +248,15 @@ def window(st: State, seconds: float, trace: bool) -> Dict[str, Any]:
         per[min(int((t - t0) // 2), len(per) - 1)] += n
     print("engine: images/s each 2 s: " + " ".join(
         f"{n / 2:.0f}" for n in per), file=sys.stderr)
+    t_kept = time.perf_counter()
     written = sum(f.stat().st_size for root in roots + [st.root / "kept"]
                   for f in root.rglob("*") if f.is_file())
+    t_sized = time.perf_counter()
     for root in roots:
         shutil.rmtree(root)
+    print(f"engine: after the window: sample kept {t_kept - t_end:.3f} s, "
+          f"sizes {t_sized - t_kept:.3f} s, outputs deleted "
+          f"{time.perf_counter() - t_sized:.3f} s", file=sys.stderr)
     images = sum(p.images for p in st.passes)
     attempted = sum(s["items"] for p in st.passes for s in p.steps)
     ok = sum(s["statuses"].get("Success", 0) for p in st.passes
@@ -249,9 +267,9 @@ def window(st: State, seconds: float, trace: bool) -> Dict[str, Any]:
 
 
 def records(st: State) -> Dict[str, Any]:
-    """The traced run's records: the window's StageMetrics and images,
-    and one more pass under the profiler with the harness's spans and
-    K2's launches."""
+    """The traced run's records: the window's StageMetrics, images and
+    CPU seconds, and one more pass under the profiler with the harness's
+    spans and K2's launches."""
     launches = {K2: []}
     orig = port_rotate.launch_shear
 
@@ -274,7 +292,8 @@ def records(st: State) -> Dict[str, Any]:
         shutil.rmtree(root, ignore_errors=True)
     return {"trace": trace,
             "steps": [s for p in st.passes for s in p.steps],
-            "images": sum(p.images for p in st.passes)}
+            "images": sum(p.images for p in st.passes),
+            "window_cpu_s": (st.cpu_start, st.cpu_end)}
 
 
 def _reference_files(st: State, p: Pass, dtype):
@@ -326,6 +345,7 @@ def check(st: State, dtype=torch.float32) -> List[Check]:
     float32 puts the reference at that precision in the program's place
     (the control).  A file the program did not write counts as differing
     by 255."""
+    t0 = time.perf_counter()
     differ = gap = 0
     for p in st.passes:
         ref = _reference_files(st, p, torch.float32)
@@ -343,6 +363,8 @@ def check(st: State, dtype=torch.float32) -> List[Check]:
             gap = max(gap, g)
     failed = sum(s["items"] - s["statuses"].get("Success", 0)
                  for p in st.passes for s in p.steps)
+    print(f"engine: reference check {time.perf_counter() - t0:.3f} s",
+          file=sys.stderr)
     return [Check("engine.files_differ", differ, 0),
             Check("engine.max_gap", gap, 0),
             Check("engine.items_failed", failed, 0)]
