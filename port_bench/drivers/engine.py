@@ -2,19 +2,25 @@
 configuration's ``ProcessingStep``s over a seeded dataset of files.
 
 Set-up makes the dataset (the traffic file's generator,
-``traffic/jpeg_dataset.py``) under a temporary
-directory, split into groups of ``pass_inputs`` images, and runs one
-whole pass to build and warm everything.  The window then runs passes
-back to back, pass ``p`` over group ``p % groups`` with new step seeds
-into a fresh output root; no pass starts after the deadline, and the
-window closes when its last pass ends.  Every image file a step saves is
+``traffic/<generator>.py``) under a temporary directory, split into
+groups of ``pass_inputs`` images, and runs one whole pass to build and
+warm everything.  A configuration with ``"auto_fuse": true`` has each
+pass's steps fused by the port's ``fuse.fuse_steps(steps, tier="byte")``
+before they are wrapped and run, as ``ProcessingPipeline.run(
+auto_fuse=True)`` would fuse them; a pass that still runs more than one
+step ends the run without a result.  The window then runs passes back to
+back, pass ``p`` over group ``p % groups`` with new step seeds into a
+fresh output root; no pass starts after the deadline, and the window
+closes when its last pass ends.  Every image file a step saves is
 counted (the harness wraps ``save_item``), and the rate is the images of
 the window's passes over the window's length.  Once the window has
 closed, a sample of each pass's inputs, drawn from the seed, keeps its
-outputs and the rest is deleted.  Then the
+outputs and the rest is deleted.  A traced run profiles one more
+pass, over the next group.  Then the
 plain reference (``reference/steps/<transform>.py``) makes those files
 again from the same inputs and seeds, and each is compared: decoded
-pixels for images, text for labels.
+pixels for images, text for labels.  Of a fused configuration only the
+last step's files are compared: the fused step writes no others.
 """
 
 from __future__ import annotations
@@ -34,16 +40,19 @@ import numpy as np
 import torch
 
 from image_processor_pipeline_tpu_torch import ProcessingPipeline, ProcessingStep
-from image_processor_pipeline_tpu_torch import kernels
+from image_processor_pipeline_tpu_torch import fuse, kernels
 from image_processor_pipeline_tpu_torch import transforms as port_transforms
 from image_processor_pipeline_tpu_torch.io import images as port_images
+from image_processor_pipeline_tpu_torch.ops import ccl as port_ccl
 from image_processor_pipeline_tpu_torch.ops import rotate as port_rotate
 from port_bench import counts
-from port_bench.harness import Check, Spans, generator, profiled
+from port_bench.harness import BenchError, Check, Spans, generator, profiled
 from port_bench.reference import images as ref_images
 
 #: the rotation kernel, as the profiler names it
 K2 = "shear_tile_kernel"
+#: the harness's span around each ``ops/ccl.py:label_components`` call
+CCL_SPAN = "ccl"
 IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png"}
 
 
@@ -81,12 +90,14 @@ class State:
 
 
 def _count_saves(st: State, transform):
-    """Record (return time, image files) of each successful save."""
+    """Record (return time, image files) of each successful save; a
+    ``save_item`` returns one path or a list of them."""
     orig = transform.save_item
 
     def counted(out, item, output_dirs, options):
         saved = orig(out, item, output_dirs, options)
-        n = sum(1 for p in saved or ()
+        paths = [saved] if isinstance(saved, (str, Path)) else saved or ()
+        n = sum(1 for p in paths
                 if Path(p).suffix.lower() in IMAGE_SUFFIXES)
         with st.lock:
             st.saves.append((time.perf_counter(), n))
@@ -114,22 +125,35 @@ def _step_dirs(st: State, root: Path, group: int, sc):
 def _run_pass(st: State, index: int, root: Path, traced=False) -> Pass:
     group = index % len(st.dirs)
     seeds = [int(st.rng.integers(0, 1 << 31)) for _ in st.cfg["steps"]]
-    pipe = ProcessingPipeline()
     first = len(st.saves)
+    steps = []
     for sc, seed in zip(st.cfg["steps"], seeds):
         transform = getattr(port_transforms, sc["transform"])()
-        _count_saves(st, transform)
-        if traced:
-            _span_methods(st, transform)
         inputs, outputs = _step_dirs(st, root, group, sc)
-        pipe.add_step(ProcessingStep(
+        steps.append(ProcessingStep(
             sc["name"], transform, input_dirs=inputs, output_dirs=outputs,
             pairing_method=sc["pairing"], seed=seed,
             options=dict(sc["options"]), workers=st.cfg["workers"],
             device=str(st.device)))
+    if st.cfg.get("auto_fuse", False):
+        # fused here, not by run(auto_fuse=True): that would replace the
+        # transforms wrapped below by new ones at run time
+        steps = fuse.fuse_steps(steps, verbose=False, tier="byte")
+        if len(steps) > 1:
+            raise BenchError(
+                f"auto_fuse left {len(steps)} steps "
+                f"({', '.join(s.name for s in steps)}): the configuration "
+                "is measured fused or not at all")
+    pipe = ProcessingPipeline()
+    for step in steps:
+        _count_saves(st, step.process_function)
+        if traced:
+            _span_methods(st, step.process_function)
+        pipe.add_step(step)
     pipe.run(progress=False)
-    steps = [dict(s.metrics.as_dict(), workers=s.workers,
-                  statuses=dict(s.status_counter)) for s in pipe.steps]
+    # the StageMetrics of the steps that ran
+    steps = [dict(s.metrics.as_dict(), name=s.name, workers=s.workers,
+                  statuses=dict(s.status_counter)) for s in steps]
     with st.lock:
         images = sum(n for _, n in st.saves[first:])
     return Pass(index, group, seeds, steps, images, [])
@@ -234,8 +258,8 @@ def window(st: State, seconds: float, trace: bool) -> Dict[str, Any]:
         p = _run_pass(st, index, root)
         t_end = time.perf_counter()
         st.cpu_end = _cpu_seconds()
-        walls = ", ".join(f"{sc['name']} {s['wall_seconds']:.3f}"
-                          for sc, s in zip(st.cfg["steps"], p.steps))
+        walls = ", ".join(f"{s['name']} {s['wall_seconds']:.3f}"
+                          for s in p.steps)
         print(f"engine pass {index}: {t_end - t:.3f} s ({walls}), "
               f"{p.images} images, CPU {st.cpu_end - cpu:.3f} s",
               file=sys.stderr)
@@ -266,10 +290,45 @@ def window(st: State, seconds: float, trace: bool) -> Dict[str, Any]:
             "written_bytes": written}
 
 
+def _wrap_ccl(st: State, calls: List[tuple]):
+    """Put a span (``CCL_SPAN``) around each ``ops/ccl.py:label_components``
+    call, opened once the card has finished the work queued before it, so
+    that the span's time is the labelling's own (it ends on a read-back of
+    its flag, so its kernels have all run when it closes; in the window
+    the labelling's first read-back waits on that queued work instead);
+    the call is made with ``return_iters=True`` and ``calls`` receives
+    (mask shape, per-item sweep counts on the device).  Returns a callable
+    that puts the original back."""
+    orig = port_ccl.label_components
+
+    def labelled(fg, max_iters=4096, return_iters=False):
+        if fg.is_cuda:
+            torch.cuda.synchronize(fg.device)
+        with st.spans.span(CCL_SPAN):
+            lbl, iters = orig(fg, max_iters, return_iters=True)
+        calls.append((tuple(fg.shape), iters, max_iters))
+        return (lbl, iters) if return_iters else lbl
+
+    port_ccl.label_components = labelled
+    return lambda: setattr(port_ccl, "label_components", orig)
+
+
+def _sweeps(iters, max_iters: int) -> int:
+    """Sweeps a labelling ran: its items' largest count, rounded up to the
+    host's look at the flag every ``CHECK_EVERY`` sweeps, as the loop runs
+    them."""
+    every = port_ccl.CHECK_EVERY
+    n = int(iters.max()) if iters.numel() else 0
+    return min(max_iters, -(-n // every) * every)
+
+
 def records(st: State) -> Dict[str, Any]:
     """The traced run's records: the window's StageMetrics, images and
     CPU seconds, and one more pass under the profiler with the harness's
-    spans and K2's launches."""
+    spans, K2's launches and each component labelling's shape and sweeps
+    (``ccl``: read once the pass has ended).  The profiled pass takes the
+    next group's inputs, as a pass of the window does."""
+    t0 = time.perf_counter()
     launches = {K2: []}
     orig = port_rotate.launch_shear
 
@@ -281,6 +340,8 @@ def records(st: State) -> Dict[str, Any]:
 
     port_rotate.launch_shear = counted
     undo = st.spans.wrap(port_images, "fill_pending_images", "decode")
+    calls: List[tuple] = []
+    undo_ccl = _wrap_ccl(st, calls)
     root = st.root / "traced"
     try:
         trace, _ = profiled(lambda: _run_pass(st, len(st.passes), root,
@@ -289,8 +350,13 @@ def records(st: State) -> Dict[str, Any]:
     finally:
         port_rotate.launch_shear = orig
         undo()
+        undo_ccl()
         shutil.rmtree(root, ignore_errors=True)
+    print(f"engine: profiled pass and its trace read "
+          f"{time.perf_counter() - t0:.3f} s", file=sys.stderr)
     return {"trace": trace,
+            "ccl": [{"shape": shape, "sweeps": _sweeps(iters, most)}
+                    for shape, iters, most in calls],
             "steps": [s for p in st.passes for s in p.steps],
             "images": sum(p.images for p in st.passes),
             "window_cpu_s": (st.cpu_start, st.cpu_end)}
@@ -344,15 +410,19 @@ def check(st: State, dtype=torch.float32) -> List[Check]:
     """Every kept file against the reference's; ``dtype`` other than
     float32 puts the reference at that precision in the program's place
     (the control).  A file the program did not write counts as differing
-    by 255."""
+    by 255.  Of a fused configuration, only the last step's files."""
     t0 = time.perf_counter()
     differ = gap = 0
+    final = set(st.cfg["steps"][-1]["outputs"]) \
+        if st.cfg.get("auto_fuse", False) else None
     for p in st.passes:
         ref = _reference_files(st, p, torch.float32)
         if dtype != torch.float32:
             got = _reference_files(st, p, dtype)
         kept = st.root / "kept" / str(p.index)
         for (d, name), data in ref.items():
+            if final is not None and d not in final:
+                continue
             if dtype == torch.float32:
                 path = kept / d / name
                 g = _compare(path.read_bytes(), data, name) \

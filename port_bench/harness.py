@@ -168,6 +168,13 @@ class Trace:
     spans: List[tuple] = field(default_factory=list)    # (name, t0, t1)
     window: tuple = (0.0, 0.0)
     launches: Dict[str, List[int]] = field(default_factory=dict)
+    #: the CUDA runtime's calls in the window that put work on the card
+    #: (kernel launches, copies, memsets): (t0, t1, the index in
+    #: ``device`` of the record the work left, None where none came, and
+    #: whether a torch operation of the profiled thread made the call)
+    calls: List[tuple] = field(default_factory=list)
+    #: indices in ``device`` of records that no call in ``calls`` made
+    unlaunched: List[int] = field(default_factory=list)
 
 
 def profiled(run: Callable[[], Any], launches: Dict[str, List[int]],
@@ -180,7 +187,11 @@ def profiled(run: Callable[[], Any], launches: Dict[str, List[int]],
     keeps host ranges of the main thread only), put on the profiler's
     clock by the window's own range.  Returns (Trace, run's result).
     Raises when the trace holds fewer records of a kernel than it was
-    launched: such a window lost records."""
+    launched: such a window lost records.
+
+    The records are read as the profiler holds them (``reduce_events``):
+    building its tree of ``FunctionEvent``s for a pass of some 10**5 host
+    operations takes tens of seconds."""
     import warnings
 
     import torch
@@ -204,22 +215,13 @@ def profiled(run: Callable[[], Any], launches: Dict[str, List[int]],
             finally:
                 events, spans.events = spans.events, None
         time.sleep(GUARD_S)
-    trace = Trace(launches={k: list(v) for k, v in launches.items()})
-    for e in prof.events():
-        t0, t1 = e.time_range.start, e.time_range.end
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            # the profiler mirrors each host span on the card's timeline
-            # as an annotation that covers the work launched inside it:
-            # no operation of its own
-            if WARMUP_KERNEL not in e.name and not e.name.startswith(SPAN):
-                trace.device.append((e.name, t0, t1))
-        elif e.name == SPAN + "window":
-            trace.window = (t0, t1)
-    lo, hi = trace.window
-    shift = lo - 1e6 * t_open
+    results = prof.profiler.kineto_results
+    trace = reduce_events(results.events(), results.trace_start_ns(),
+                          torch.autograd.DeviceType.CUDA)
+    trace.launches = {k: list(v) for k, v in launches.items()}
+    shift = trace.window[0] - 1e6 * t_open
     trace.spans = [(n, 1e6 * a + shift, 1e6 * b + shift)
                    for n, a, b in events]
-    trace.device = [d for d in trace.device if d[2] > lo and d[1] < hi]
     for kernel, sizes in trace.launches.items():
         got = sum(1 for d in trace.device if kernel in d[0])
         if got < len(sizes):
@@ -227,6 +229,65 @@ def profiled(run: Callable[[], Any], launches: Dict[str, List[int]],
                              f"{kernel} for {len(sizes)} launches: records "
                              "were lost, so no share is reported")
     return trace, result
+
+
+def _runtime_call(name: str) -> bool:
+    """A CUDA runtime or driver call that puts work on the card."""
+    return name.startswith("cu") and any(
+        w in name for w in ("Launch", "Memcpy", "Memset"))
+
+
+def reduce_events(events, base_ns: int, cuda) -> Trace:
+    """A Trace of the profiler's records (``_KinetoEvent``s; ``cuda`` is
+    the device type of the card's records), times in microseconds from
+    ``base_ns``: the card's records in the window of the ``SPAN +
+    "window"`` range (the warm-up's kernel and the card's copies of host
+    ranges left out), and the runtime's calls in that window, each tied
+    to the card's record it made by the correlation id.  A call belongs
+    to the profiled thread where the torch operation it is linked to ran
+    on the window range's thread: the profiler records the operations of
+    that thread only."""
+    trace = Trace()
+    device, corr = [], []
+    calls, ops = [], {}
+    thread = None
+    for e in events:
+        hidden = getattr(e, "is_hidden_event", None)
+        if hidden is not None and hidden():
+            continue
+        name = e.name()
+        t0 = (e.start_ns() - base_ns) / 1e3
+        t1 = t0 + e.duration_ns() / 1e3
+        if e.device_type() == cuda:
+            # the profiler mirrors each host span on the card's timeline
+            # as an annotation that covers the work launched inside it:
+            # no operation of its own
+            if WARMUP_KERNEL not in name and not name.startswith(SPAN):
+                device.append((name, t0, t1))
+                corr.append(e.correlation_id())
+        elif name == SPAN + "window":
+            trace.window = (t0, t1)
+            thread = e.start_thread_id()
+        elif _runtime_call(name):
+            calls.append((t0, t1, e.correlation_id(),
+                          e.linked_correlation_id()))
+        elif not name.startswith("cu") and e.linked_correlation_id() == 0:
+            ops[e.correlation_id()] = e.start_thread_id()
+    lo, hi = trace.window
+    kept = [i for i, d in enumerate(device) if d[2] > lo and d[1] < hi]
+    trace.device = [device[i] for i in kept]
+    index = {corr[i]: j for j, i in enumerate(kept)}
+    made = set()
+    for t0, t1, c, linked in calls:
+        if not lo <= t0 < hi:
+            continue
+        d = index.get(c)
+        own = linked > 0 and thread is not None and ops.get(linked) == thread
+        trace.calls.append((t0, t1, d, own))
+        if d is not None:
+            made.add(d)
+    trace.unlaunched = [j for j in range(len(trace.device)) if j not in made]
+    return trace
 
 
 def union(intervals) -> List[tuple]:

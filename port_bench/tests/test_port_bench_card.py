@@ -31,3 +31,21 @@ def test_cell_runs_correct_on_the_card(card, name, trace):
     wanted = cell.per_layer if trace else cell.end_to_end
     assert set(out["metrics"]) == {m["name"] for m in wanted}
     assert out["device"]["platform"] == "gpu"
+
+
+@pytest.mark.cuda
+def test_the_fused_chroma_key_cell_reads_the_ccl_on_the_card(card,
+                                                              monkeypatch):
+    """``fusedchain640.clutter`` traced, briefly: correct, one fused step a
+    pass (the driver ends the run otherwise), the three CCL metrics read,
+    the roofline share in (0, 100]."""
+    from conftest import _load_cell
+
+    monkeypatch.setattr(harness, "load_cell", _load_cell)
+    line, _ = run.run("fusedchain640.clutter", 2**31 + 103, 3.0, True)
+    out = json.loads(line)
+    assert out["correct"] is True, out["checks"]
+    m = out["metrics"]
+    assert {"ccl_ms_per_batch", "ccl_sweeps_per_batch",
+            "ccl_roofline"} <= set(m)
+    assert 0 < m["ccl_roofline"]["value"] <= 100

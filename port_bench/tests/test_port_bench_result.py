@@ -12,7 +12,8 @@ from port_bench.drivers import chain, engine
 from conftest import fake_profiled
 
 
-@pytest.mark.parametrize("name", ["chain640.b16", "rotsym640.jpeg"])
+@pytest.mark.parametrize("name", ["chain640.b16", "rotsym640.jpeg",
+                                  "fusedchain640.clutter"])
 @pytest.mark.parametrize("trace", [False, True])
 def test_last_line_keys(tiny, monkeypatch, name, trace):
     for mod in (chain, engine):
