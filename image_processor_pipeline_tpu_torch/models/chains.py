@@ -56,6 +56,7 @@ from image_processor_pipeline_tpu_torch.ops import color as color_ops
 from image_processor_pipeline_tpu_torch.ops import geometry, native_draws
 from image_processor_pipeline_tpu_torch.ops import photometric
 from image_processor_pipeline_tpu_torch.ops.augment import (
+    _D4_CODES,
     _crop,
     augment_finish_reference,
     augment_full_reference,
@@ -201,19 +202,29 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
     on the images' device.  xywhn: [B, 4] normalized bbox; seeds: [B]
     non-negative integers (host draws).
 
+    'cuda_full' on a CUDA device with the native draws library built
+    takes the packed path (``_packed_call``): the call's rows packed in
+    one pinned host buffer, one copy, K1 launched from it.  Every other
+    mode, device or build copies the rows one array at a time.
+
     With the process's recorder on (``utils.profiling.recording``, or a
     torch.profiler session collecting) a call is the span ``chain.call``
     around ``chain.draws``, ``chain.shifts``, ``chain.h2d`` and
     ``chain.launch``, and adds the arrays it copies to the images' device
-    to the counter ``chain.h2d_copies`` and each draw function the native
-    pass served to ``chain.draws_native``."""
+    to the counter ``chain.h2d_copies``, each draw function the native
+    pass served to ``chain.draws_native`` and each call the packed path
+    served to ``chain.packed``."""
     check_mode(rotation)
     dev = images.device
+    packed = (rotation == "cuda_full" and dev.type == "cuda"
+              and native_draws.available())
     with profiling.span("chain.call"):
         with profiling.span("chain.draws"):
             y0, x0, angles = _crop_params(images.shape[1:3], xywhn, seeds,
                                           crop)
             flips, prms = _flip_and_params(seeds)
+        if packed:
+            return _packed_call(images, y0, x0, angles, flips, prms, crop)
         with profiling.span("chain.shifts"):
             # the shift vectors from the host's angles, so that every
             # device and every mode gets the same ones (the card's tanf/
@@ -227,6 +238,32 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
         with profiling.span("chain.launch"):
             return _launch(images, y0, x0, angles, shifts, prms, flips,
                            crop, rotation)
+
+
+def _packed_call(images, y0, x0, angles, flips, prms, crop):
+    """'cuda_full' on the card from the host draws: the per-item shear
+    factors in torch (``geometry.shear_factors``, as ``shear_params``
+    computes them), then the item rows, enhance rows and shift vectors
+    written by one native call into a buffer of torch's pinned host
+    allocator (which hands a block out again only once the copies from it
+    have completed), one copy of it to the card, and K1 launched from its
+    sections with no device work in between."""
+    with profiling.span("chain.shifts"):
+        quad, a, b = geometry.shear_factors(torch.from_numpy(angles))
+        layout = native_draws.pack_layout(len(y0), crop)
+        host = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=True)
+        native_draws.chain_pack(host, layout, y0, x0, flips, prms, quad, a, b,
+                                _D4_CODES, *geometry.shift_limits(crop))
+    with profiling.span("chain.h2d"):
+        profiling.count("chain.h2d_copies")
+        staged = host.to(images.device, non_blocking=True)
+    with profiling.span("chain.launch"):
+        out = augment_fused_full(images.contiguous(), None, None, None, None,
+                                 None, _FILTER_LOWERS, _FILTER_UPPERS,
+                                 _FILTER_ZONES, crop=crop,
+                                 staged=(staged, layout))
+    profiling.count("chain.packed")
+    return out
 
 
 def _launch(images, y0, x0, angles, shifts, prms, flips, crop, rotation):

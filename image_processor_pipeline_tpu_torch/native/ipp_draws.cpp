@@ -1,5 +1,6 @@
 // The flagship chain's per-item host draws (models/chains.py:_crop_params
-// and _flip_and_params) in one pass over the batch: the Threefry-2x32
+// and _flip_and_params) in one pass over the batch, and the pack of a
+// call's rows for K1 (ipp_chain_pack).  The draws are the Threefry-2x32
 // draws of ``jax.random`` under partitionable counters, bit for bit those
 // of random.py, the numpy twin that the tests hold this file to.
 //
@@ -143,6 +144,19 @@ inline int64_t trunc_i32(float v) {
   return static_cast<int32_t>(v);
 }
 
+// One shift vector of ipp_chain_pack: clamp(to_int32(rint(f * (k - c))),
+// -lim, lim) for k in [0, S), where to_int32 is trunc_i32's conversion
+// (the loop stays in int32 so that it vectorises).
+inline void shift_row(float f, float c, int S, int32_t lim, int32_t* out) {
+  for (int k = 0; k < S; ++k) {
+    const float r = std::nearbyint(f * (static_cast<float>(k) - c));
+    const int32_t v = r >= -2147483648.0f && r < 2147483648.0f
+                          ? static_cast<int32_t>(r)
+                          : INT32_MIN;
+    out[k] = std::min(std::max(v, -lim), lim);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,6 +221,41 @@ void ipp_chain_flip_draws(const uint64_t* seeds, int B, int32_t* flips,
     for (uint32_t c = 0; c < 3; ++c)
       uniform(k, c, kGainLo, kGainHi, n, p + 3 + c, 8);
     for (int j = 0; j < n; ++j) p[8 * j + 6] = p[8 * j + 7] = 0.0f;
+  }
+}
+
+// The rows K1 reads for one chain call (models/chains.py:_packed_call),
+// written into one host buffer that goes to the card in one copy; the
+// caller places each section (ops/native_draws.py:pack_layout):
+//   items [B, 4] int32   y0, x0, d4[quad * 4 + clamp(flip, 0, 3)], 0
+//                        (ops/augment.py:item_codes, chain_args)
+//   enh   [B, 8] float32 the enhance rows as drawn
+//   sh1, sh2 [B, S] int32  geometry.shear_params' vectors from its
+//                        per-item factors a and b (geometry.shear_factors):
+//                        rint(a * iy), iy = k - (S - 1) / 2, in float32,
+//                        rounded half to even as torch.round rounds,
+//                        converted as Tensor.to(torch.int32) converts, then
+//                        clipped to +-lim1 and +-lim2 (geometry.shift_limits)
+// quad in [0, 4) as torch.remainder(., 4) gives it.  Exact integer and
+// IEEE float32 work, so the rows equal the torch glue's bit for bit.
+void ipp_chain_pack(int B, int S, const int32_t* y0, const int32_t* x0,
+                    const int32_t* flips, const float* prm,
+                    const int32_t* quad, const float* a, const float* b,
+                    const int32_t* d4, int lim1, int lim2, int32_t* items,
+                    float* enh, int32_t* sh1, int32_t* sh2) {
+  for (int i = 0; i < B; ++i) {
+    int32_t* row = items + 4 * static_cast<int64_t>(i);
+    row[0] = y0[i];
+    row[1] = x0[i];
+    row[2] = d4[(quad[i] & 3) * 4 + std::min(std::max(flips[i], 0), 3)];
+    row[3] = 0;
+  }
+  std::memcpy(enh, prm, sizeof(float) * 8 * static_cast<size_t>(B));
+  const float c = (static_cast<float>(S) - 1.0f) / 2.0f;
+  for (int i = 0; i < B; ++i) {
+    const int64_t at = static_cast<int64_t>(i) * S;
+    shift_row(a[i], c, S, lim1, sh1 + at);
+    shift_row(b[i], c, S, lim2, sh2 + at);
   }
 }
 

@@ -359,19 +359,36 @@ def chain_args(canvas, y0, x0, shifts, enh_params, flips, lowers, uppers,
     return canvas, items, shifts, enh_params.contiguous(), filt, S
 
 
+@functools.lru_cache(maxsize=None)
+def filter_rows(lowers, uppers, zones):
+    """chain_args' host filter rows [F, 10] int32 of a filter stack given
+    as tuples, built once a process."""
+    return torch.cat(filter_stack(lowers, uppers, zones), dim=1).contiguous()
+
+
 def launch_chain(name, canvas, items, shifts, params, filt, S, path=None,
                  cluster: int = CLUSTER):
     """Launch csrc/augment_full.cu's ipp_augment_full on the canvas's
     device by the launcher ``path`` names (default chain_path(S)), with
     ``cluster`` CTAs an image on the cluster path, and count the launch
     under ``name``.  Returns [B, S, S, 4] uint8."""
+    _, sh1, sh2 = (t.contiguous() for t in shifts)
+    return _launch_rows(name, canvas, items.data_ptr(), sh1.data_ptr(),
+                        sh2.data_ptr(), params.data_ptr(), filt, S, path,
+                        cluster)
+
+
+def _launch_rows(name, canvas, items, sh1, sh2, params, filt, S, path=None,
+                 cluster: int = CLUSTER):
+    """launch_chain given the device addresses of the item rows, shift
+    vectors and enhance rows."""
     dev = canvas.device
     B, SIN, _, C = canvas.shape
     path = chain_path(S) if path is None else path
     if path not in ("cluster", "two_pass"):
         raise ValueError(f"unknown chain path {path!r}")
-    _, sh1, sh2 = (t.contiguous() for t in shifts)
-    out = torch.empty((B, S, S), dtype=torch.int32, device=dev)
+    # the kernel writes one 32-bit RGBA word a pixel
+    out = torch.empty((B, S, S, 4), dtype=torch.uint8, device=dev)
     # the two-pass path's 64-bit luma sums; the cluster path needs none
     lum_sums = (torch.empty(B, dtype=torch.int64, device=dev)
                 if path == "two_pass" else None)
@@ -380,12 +397,11 @@ def launch_chain(name, canvas, items, shifts, params, filt, S, path=None,
         code = kernels.library().ipp_augment_full(
             canvas.data_ptr(), out.data_ptr(),
             None if lum_sums is None else lum_sums.data_ptr(),
-            items.data_ptr(), sh1.data_ptr(), sh2.data_ptr(),
-            params.data_ptr(), filt.data_ptr(), filt.shape[0], B, SIN, C, S,
-            cluster if path == "cluster" else 0, stream)
+            items, sh1, sh2, params, filt.data_ptr(), filt.shape[0], B, SIN,
+            C, S, cluster if path == "cluster" else 0, stream)
     kernels.check(code)
     kernels.launch_counts[name] += 1
-    return out.view(torch.uint8).view(B, S, S, 4)
+    return out
 
 
 def max_active_clusters(S: int, C: int = 3, cluster: int = CLUSTER) -> int:
@@ -400,7 +416,7 @@ def max_active_clusters(S: int, C: int = 3, cluster: int = CLUSTER) -> int:
 def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
                        uppers, zones, crop: int = 512, shifts=None,
                        flips_in: str = "epilogue",
-                       in_kernel_crop: bool = True):
+                       in_kernel_crop: bool = True, staged=None):
     """The whole chain for a batch: crop → flip → rotate → mask → enhance.
 
     canvas: packed int32 [B, SIN, SIN] RGBA (see pack_rgba) or uint8
@@ -416,7 +432,16 @@ def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
     [B, S, S, 4] uint8, the same bytes under every placement.  CPU tensors
     run augment_full_reference; CUDA tensors launch the kernel (no
     fallback); other devices raise.
+
+    staged: (buffer, layout), the call's item rows, enhance rows and
+    shift vectors packed at ``native_draws.pack_layout``'s offsets
+    (``native_draws.chain_pack``) in one uint8 buffer on the canvas's
+    card, from which the kernel is launched under the default placement;
+    y0, x0, angles, enh_params, flips and shifts are then None, and
+    lowers, uppers and zones tuples.
     """
+    if staged is not None:
+        return _launch_staged(canvas, staged, lowers, uppers, zones, crop)
     src = canvas_u8(canvas)
     B, SIN, S, dev = src.shape[0], src.shape[1], crop, src.device
     if not 1 <= S <= SIN:
@@ -439,6 +464,30 @@ def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
     return launch_chain("augment_full", *chain_args(
         src, y0, x0, shifts, enh_params, flips, lowers, uppers, zones, S,
         codes=codes))
+
+
+def _launch_staged(canvas, staged, lowers, uppers, zones, S: int):
+    """augment_fused_full's launch from packed rows: shape checks only, no
+    device work before the kernel's."""
+    src = canvas_u8(canvas)
+    buf, layout = staged
+    B, SIN = src.shape[0], src.shape[1]
+    if src.device.type != "cuda" or buf.device != src.device:
+        raise ValueError(f"staged rows launch the kernel on the canvas's "
+                         f"card: canvas on {src.device}, rows on "
+                         f"{buf.device}")
+    if not 1 <= S <= SIN:
+        raise ValueError(f"crop {S} must lie in [1, {SIN}]")
+    if (layout.B, layout.S) != (B, S) or buf.dtype != torch.uint8 \
+            or buf.numel() < layout.nbytes:
+        raise ValueError(f"staged rows of {layout.B} items at S="
+                         f"{layout.S} in {buf.numel()} bytes do not fit "
+                         f"{B} canvases at S={S}")
+    base = buf.data_ptr()
+    return _launch_rows("augment_full", src, base + layout.items,
+                        base + layout.sh1, base + layout.sh2,
+                        base + layout.enh, filter_rows(lowers, uppers, zones),
+                        S)
 
 
 def augment_fused(images, angles, enh_params, lowers, uppers, zones,

@@ -471,6 +471,24 @@ def shear13_bits_for(size: int) -> int:
     return max(bits, 4)
 
 
+def shear_factors(angles):
+    """(quad [B] int32, a [B] float32, b [B] float32) of ``angles`` [B]
+    degrees: the quarter turn, a = tan(phi/2) and b = -sin(phi) of the
+    remainder phi, the per-item part of ``shear_params`` (which expands
+    them into its [B, H] vectors).  The float32 operations are the JAX
+    function's, in its order, on the angles' device."""
+    theta = torch.as_tensor(angles).to(torch.float32) * _DEG2RAD
+    # jnp.mod: the exact remainder, moved into [0, 2π)
+    theta = torch.fmod(theta, _TWO_PI)
+    theta = torch.where(theta < 0, theta + _TWO_PI, theta)
+    # a tensor divisor: CUDA turns division by a python scalar into a
+    # multiply by its reciprocal, which is not the IEEE quotient
+    quad = torch.remainder(torch.floor(
+        (theta + _PI_4) / torch.full_like(theta, _PI_2)).to(torch.int32), 4)
+    phi = theta - quad.to(torch.float32) * _PI_2
+    return quad, torch.tan(phi / 2), -torch.sin(phi)
+
+
 def shear_params(angles, H: int):
     """(quad [B] int32, sh1 [B, H] int32, sh2 [B, H] int32) for the Paeth
     3-shear rotation of an H×H canvas by ``angles`` [B] degrees.
@@ -481,30 +499,27 @@ def shear_params(angles, H: int):
     10^5 angles at H=512 on the CPU); callers that must agree with another
     backend pass the same vectors to both.
     """
-    theta = torch.as_tensor(angles).to(torch.float32) * _DEG2RAD
-    # jnp.mod: the exact remainder, moved into [0, 2π)
-    theta = torch.fmod(theta, _TWO_PI)
-    theta = torch.where(theta < 0, theta + _TWO_PI, theta)
-    # a tensor divisor: CUDA turns division by a python scalar into a
-    # multiply by its reciprocal, which is not the IEEE quotient
-    quad = torch.remainder(torch.floor(
-        (theta + _PI_4) / torch.full_like(theta, _PI_2)).to(torch.int32), 4)
-    phi = theta - quad.to(torch.float32) * _PI_2
-    a = torch.tan(phi / 2)
-    b = -torch.sin(phi)
+    quad, a, b = shear_factors(angles)
     c = (float(H) - 1.0) / 2.0   # exact in float32
-    iy = torch.arange(H, dtype=torch.float32, device=theta.device) - c
+    iy = torch.arange(H, dtype=torch.float32, device=a.device) - c
     sh1 = torch.round(a[:, None] * iy[None, :]).to(torch.int32)
     sh2 = torch.round(b[:, None] * iy[None, :]).to(torch.int32)
     return (quad, *_clip_shifts(sh1, sh2, H))
 
 
+@functools.lru_cache(maxsize=None)
+def shift_limits(H: int):
+    """(lim1, lim2): the largest |sh1| (and |sh3|) and |sh2| that
+    ``_clip_shifts`` keeps on an H×H canvas."""
+    return ((1 << (shear13_bits_for(H) - 1)) - 1,
+            (1 << (shift_bits_for(H) - 1)) - 1)
+
+
 def _clip_shifts(sh1, sh2, H: int):
     """sh1 and sh2 clipped to the ranges ``_row_shift`` applies on an H×H
     canvas (``shear13_bits_for`` and ``shift_bits_for`` bits)."""
-    o13 = 1 << (shear13_bits_for(H) - 1)
-    o2 = 1 << (shift_bits_for(H) - 1)
-    return sh1.clamp(-(o13 - 1), o13 - 1), sh2.clamp(-(o2 - 1), o2 - 1)
+    lim1, lim2 = shift_limits(H)
+    return sh1.clamp(-lim1, lim1), sh2.clamp(-lim2, lim2)
 
 
 def applied_shifts(quad, sh1, sh2, H: int):

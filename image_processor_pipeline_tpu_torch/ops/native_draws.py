@@ -2,7 +2,9 @@
 (native/ipp_draws.cpp): ``models/chains.py:_crop_params`` and
 ``_flip_and_params`` for a whole batch in one native call each, bit for
 bit the draws of ``random.py`` (and so of ``jax.random``), which stays
-their numpy twin and the chains' path where this library is unavailable.
+their numpy twin and the chains' path where this library is unavailable;
+and ``chain_pack``, which writes a 'cuda_full' call's item rows, enhance
+rows and shift vectors into one buffer for one copy to the card.
 
 The library is built at first use with ``g++`` straight from the source
 into ``_build/libipp_draws.so`` by utils/native_build.py (an flock, a temp
@@ -16,11 +18,13 @@ false and ``build_error()`` says why in the compiler's words.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 from image_processor_pipeline_tpu_torch.utils import native_build
 
@@ -61,13 +65,17 @@ def build_error() -> Optional[str]:
 
 
 def _bind_symbols(lib) -> None:
-    """Declare argtypes/restypes for the two exports.  Raises
+    """Declare argtypes/restypes for the three exports.  Raises
     AttributeError when the loaded library lacks one."""
     c_int, p = ctypes.c_int, ctypes.c_void_p
     lib.ipp_chain_crop_draws.argtypes = [p, p, c_int, c_int, c_int, c_int,
                                          p, p, p]
     lib.ipp_chain_flip_draws.argtypes = [p, c_int, p, p]
-    lib.ipp_chain_crop_draws.restype = lib.ipp_chain_flip_draws.restype = None
+    lib.ipp_chain_pack.argtypes = [c_int, c_int] + [p] * 8 + [c_int] * 2 \
+        + [p] * 4
+    for fn in (lib.ipp_chain_crop_draws, lib.ipp_chain_flip_draws,
+               lib.ipp_chain_pack):
+        fn.restype = None
 
 
 def _seeds(seeds: np.ndarray) -> np.ndarray:
@@ -113,3 +121,80 @@ def flip_draws(seeds: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     _load().ipp_chain_flip_draws(seeds.ctypes.data, B, flips.ctypes.data,
                                  prm.ctypes.data)
     return flips, prm
+
+
+#: each section of ``chain_pack``'s buffer starts at a multiple of this
+ALIGN = 256
+
+
+class PackLayout(NamedTuple):
+    """Byte offsets of the sections of ``chain_pack``'s buffer for B items
+    and S px crops, and its size: item rows [B, 4] int32, enhance rows
+    [B, 8] float32, sh1 and sh2 [B, S] int32."""
+    B: int
+    S: int
+    items: int
+    enh: int
+    sh1: int
+    sh2: int
+    nbytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def pack_layout(B: int, S: int) -> PackLayout:
+    def up(n):
+        return -(-n // ALIGN) * ALIGN
+    enh = up(16 * B)
+    sh1 = enh + up(32 * B)
+    sh2 = sh1 + up(4 * B * S)
+    return PackLayout(B, S, 0, enh, sh1, sh2, sh2 + 4 * B * S)
+
+
+def section(buf: torch.Tensor, layout: PackLayout, name: str):
+    """The section ``name`` ("items", "enh", "sh1" or "sh2") of a packed
+    buffer, viewed with its dtype and shape."""
+    B, S = layout.B, layout.S
+    dtype, shape = {"items": (torch.int32, (B, 4)),
+                    "enh": (torch.float32, (B, 8)),
+                    "sh1": (torch.int32, (B, S)),
+                    "sh2": (torch.int32, (B, S))}[name]
+    start = getattr(layout, name)
+    n = 4 * shape[0] * shape[1]
+    return buf[start:start + n].view(dtype).view(shape)
+
+
+def chain_pack(out: torch.Tensor, layout: PackLayout, y0, x0, flips, prm,
+               quad, a, b, d4, lim1: int, lim2: int) -> None:
+    """Write a 'cuda_full' call's rows into the uint8 host buffer ``out``
+    (``layout.nbytes`` bytes or more) at ``layout``'s offsets: the item
+    rows of y0, x0 [B] int32, the D4 code ``d4`` [16] gives quarter turn
+    ``quad`` and user flip ``flips`` [B] int32, and 0; the enhance rows
+    ``prm`` [B, 8] float32; and ``geometry.shear_params``' sh1, sh2 [B, S]
+    from ``geometry.shear_factors``' quad, a, b [B] (CPU tensors), clipped
+    to ``lim1`` and ``lim2`` (``geometry.shift_limits``).  The rows are
+    taken as they are, contiguous numpy arrays of these dtypes (the
+    draws'), ``d4`` int32 [16]: any other form raises ValueError.  The
+    library must be available."""
+    B, S = layout.B, layout.S
+    arrays = ((y0, np.int32, (B,)), (x0, np.int32, (B,)),
+              (flips, np.int32, (B,)), (prm, np.float32, (B, 8)),
+              (d4, np.int32, (16,)))
+    factors = ((quad, torch.int32), (a, torch.float32), (b, torch.float32))
+    if not (all(isinstance(v, np.ndarray) and v.dtype == dtype
+                and v.shape == shape and v.flags.c_contiguous
+                for v, dtype, shape in arrays)
+            and all(t.dtype == dtype and t.shape == (B,) and t.is_cpu
+                    and t.is_contiguous() for t, dtype in factors)):
+        raise ValueError(f"chain_pack needs contiguous int32 [{B}] rows, "
+                         f"float32 [{B}, 8] enhance rows, 16 int32 D4 "
+                         f"codes and [{B}] factors on the host")
+    if (out.dtype != torch.uint8 or not out.is_cpu
+            or not out.is_contiguous() or out.numel() < layout.nbytes):
+        raise ValueError(f"chain_pack needs a contiguous uint8 host buffer "
+                         f"of {layout.nbytes} bytes")
+    base = out.data_ptr()
+    _load().ipp_chain_pack(
+        B, S, y0.ctypes.data, x0.ctypes.data, flips.ctypes.data,
+        prm.ctypes.data, quad.data_ptr(), a.data_ptr(), b.data_ptr(),
+        d4.ctypes.data, lim1, lim2, base + layout.items, base + layout.enh,
+        base + layout.sh1, base + layout.sh2)

@@ -16,6 +16,8 @@ import torch
 from image_processor_pipeline_tpu_torch import interop, kernels
 from image_processor_pipeline_tpu_torch.models import chains
 from image_processor_pipeline_tpu_torch.ops import augment, geometry, rotate
+from image_processor_pipeline_tpu_torch.ops import native_draws
+from image_processor_pipeline_tpu_torch.utils import profiling
 
 FILTERS = (chains._FILTER_LOWERS, chains._FILTER_UPPERS,
            chains._FILTER_ZONES)
@@ -138,6 +140,105 @@ def test_gather_chain_on_card_matches_the_cpu(cuda_device):
     want = chains.augment_chain(images.cpu(), xywhn, seeds,
                                 rotation="gather")
     assert torch.equal(got.cpu(), want)
+
+
+# -- the chain's packed path (models/chains.py:_packed_call) -------------------
+
+@pytest.fixture
+def recorder():
+    rec = profiling.RECORDER
+    rec.reset()
+    yield rec
+    rec.reset()
+
+
+def packed_inputs(B, dev, seed):
+    """B 640 px canvases on the card, boxes and large seeds."""
+    rng = np.random.default_rng(seed)
+    images = torch.randint(0, 256, (B, 640, 640, 3), dtype=torch.uint8,
+                           device=dev,
+                           generator=torch.Generator(dev).manual_seed(seed))
+    xywhn = np.concatenate([rng.uniform(0.3, 0.7, (B, 2)),
+                            rng.uniform(0.05, 0.3, (B, 2))],
+                           axis=1).astype(np.float32)
+    seeds = 2**33 + seed * 1000 + np.arange(B, dtype=np.int64)
+    return images, xywhn, seeds
+
+
+def todays_glue(images, xywhn, seeds, S=512):
+    """The 'cuda_full' call as the array-at-a-time glue makes it: the
+    draws, shear_params' vectors, seven copies, augment_fused_full."""
+    y0, x0, angles = chains._crop_params(images.shape[1:3], xywhn, seeds, S)
+    flips, prms = chains._flip_and_params(seeds)
+    shifts = geometry.shear_params(torch.from_numpy(angles), S)
+    y0, x0, flips, prms, *shifts = (
+        torch.as_tensor(a, device=images.device)
+        for a in (y0, x0, flips, prms, *shifts))
+    return augment.augment_fused_full(images, y0, x0, None, prms, flips,
+                                      *FILTERS, crop=S, shifts=shifts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 256])
+def test_the_packed_path_gives_the_bytes_of_todays_glue(cuda_device,
+                                                        recorder, B):
+    """'cuda_full' on the card: one packed copy, one K1 launch, counted
+    as one packed call, the bytes of the array-at-a-time glue."""
+    assert native_draws.available(), native_draws.build_error()
+    images, xywhn, seeds = packed_inputs(B, cuda_device, seed=B)
+    kernels.reset_launch_counts()
+    with profiling.recording():
+        got = chains.augment_chain(images, xywhn, seeds)
+    assert recorder.counters["chain.packed"] == 1
+    assert recorder.counters["chain.h2d_copies"] == 1
+    assert kernels.launch_counts["augment_full"] == 1
+    want = todays_glue(images, xywhn, seeds)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_back_to_back_packed_calls_equal_synchronised_ones(cuda_device,
+                                                           recorder):
+    """32 calls queued behind a sleeping kernel, so that every pack is
+    written before any copy lands, equal the same calls synchronised one
+    by one: no pinned block is handed out again before its copy."""
+    images, xywhn, seeds = packed_inputs(16, cuda_device, seed=32)
+    calls = [seeds + 16 * i for i in range(32)]
+    torch.cuda.synchronize()
+    with profiling.recording():
+        torch.cuda._sleep(200_000_000)
+        queued = [chains.augment_chain(images, xywhn, s) for s in calls]
+    torch.cuda.synchronize()
+    assert recorder.counters["chain.packed"] == 32
+    assert recorder.counters["chain.h2d_copies"] == 32
+    for s, got in zip(calls, queued):
+        want = chains.augment_chain(images, xywhn, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cuda_shear", "no_library"])
+def test_other_modes_and_builds_take_todays_glue(cuda_device, monkeypatch,
+                                                 recorder, case):
+    """'cuda_shear', and 'cuda_full' without the native library, copy
+    their arrays one at a time, count no packed call, and give today's
+    bytes."""
+    images, xywhn, seeds = packed_inputs(16, cuda_device, seed=7)
+    if case == "cuda_shear":
+        want = chains.augment_chain(images, xywhn, seeds, rotation="shear")
+    else:
+        want = todays_glue(images, xywhn, seeds)
+        monkeypatch.setattr(native_draws, "available", lambda: False)
+    with profiling.recording():
+        got = chains.augment_chain(
+            images, xywhn, seeds,
+            rotation="cuda_shear" if case == "cuda_shear" else "cuda_full")
+    assert "chain.packed" not in recorder.counters
+    assert recorder.counters["chain.h2d_copies"] == 7
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def rotate_args(B, S, C, dev):
