@@ -13,11 +13,7 @@ canvases, and random shift vectors), drives the flagship chain
 cuda_full, cuda_shear and cuda_fused, and the batched rotation op on
 single-channel masks, checks each output against its plain twin on the
 card and that no main path took the rotation's direct gather or
-cuda_shear's torch crop, drives the chain kernel's other placements of
-the crop and the flip (the spellings cuda_full:pre, cuda_full:gath,
-cuda_full:i32crop, cuda_full: and cuda_full_ikc) at B=8 and 64, each
-launch against its plain twin on the card and the default cuda_full, and
-the chain's gather mode against the same mode on the CPU and against
+cuda_shear's torch crop, drives the chain's gather mode against the same mode on the CPU and against
 cuda_shear's footprint, times each kernel's launch alone against its
 bytes bound and its plain version, the chain kernel's two paths and
 cluster sizes and the rotation kernel's two paths in turns,
@@ -2398,74 +2394,7 @@ def native_compute_pipelines(root, dev, card, workers, imgs_dir, labels_dir):
             "phase_s": time.perf_counter() - t_phase}
 
 
-# ---- K1's placements and the chain's gather mode -------------------------
-
-#: the 'cuda_full' spellings of K1's placements -> (their plain twin's
-#: spelling, augment_fused_full's placement arguments for the launch alone,
-#: the canvas form the chain gives it: the uint8 image or pack_rgba's)
-PLACEMENTS = {
-    "cuda_full:pre": ("cuda_full:pre,interp",
-                      {"flips_in": "prologue", "in_kernel_crop": False},
-                      "u8"),
-    "cuda_full:gath": ("cuda_full:gath,interp",
-                       {"flips_in": "gather", "in_kernel_crop": False}, "u8"),
-    "cuda_full:i32crop": ("cuda_full:i32crop,interp",
-                          {"in_kernel_crop": False}, "packed"),
-    "cuda_full:": ("cuda_full:interp", {"in_kernel_crop": False}, "u8"),
-    "cuda_full_ikc": ("cuda_full:ikc,interp", {}, "packed"),
-}
-
-
-def k1_placements(chains, kernels, inputs, default_out, dev):
-    """Each of K1's placements of the crop and the flip as a main path:
-    AugmentChain(640) in the placement's spelling at each batch, its
-    launches read on their own (one a call), and each output held against
-    its plain twin on the card ('interp') and against the default
-    'cuda_full' output, byte for byte.  Returns the launches of them all."""
-    total = 0
-    for mode, (twin, _, _) in PLACEMENTS.items():
-        chain = chains.AugmentChain(640, rotation=mode, device=dev)
-        got, counts = drive(kernels, {"augment_full": len(inputs)}, lambda: {
-            B: chain(images, xywhn, seeds)
-            for B, (images, xywhn, seeds) in inputs.items()})
-        total += counts["augment_full"]
-        for B, (images, xywhn, seeds) in inputs.items():
-            check_equal(got[B], chains.augment_chain(
-                images, xywhn, seeds, rotation=twin),
-                f"K1 placement {mode} B={B}: launch != its plain twin {twin}")
-            check_equal(got[B], default_out[B],
-                        f"K1 placement {mode} B={B}: != cuda_full")
-            check_not_degenerate(got[B], f"{mode} B={B}")
-            print(f"K1 placement {mode!r} B={B}: one launch == its plain twin "
-                  f"{twin!r} on the card == the default 'cuda_full', byte for "
-                  f"byte")
-    return total
-
-
-def k1_placement_ms(augment, filt, dev, card, k1_ms, k1_bound_ms):
-    """Device ms of each placement's augment_fused_full call at S=512
-    (its torch crop, flip or gather and the K1 launch), against K1's own
-    launch and bound.  Returns {mode: {"B=8": ms, "B=64": ms}}."""
-    out = {}
-    for mode, (_, kw, form) in PLACEMENTS.items():
-        out[mode] = {}
-        for B in BATCHES:
-            u4, y0, x0, angles, prms, flips = kernel_inputs(640, 512, B,
-                                                            seed=B, dev=dev)
-            canvas = (u4.view(torch.int32)[..., 0] if form == "packed"
-                      else u4[..., :3].contiguous())
-            shifts = augment._shifts(angles, 512)
-            ms = device_ms(lambda: augment.augment_fused_full(
-                canvas, y0, x0, None, prms, flips, *filt, crop=512,
-                shifts=shifts, **kw))
-            out[mode][f"B={B}"] = ms
-            print(f"K1 placement {mode!r} B={B} S=512 ({form} canvas, "
-                  f"{kw or 'in-kernel crop'}): {ms:.4f} device ms a call "
-                  f"(placement and launch), K1's default launch "
-                  f"{k1_ms[B]:.4f}, K1's bound {k1_bound_ms[B]:.4f}; card "
-                  f"{card}")
-    return out
-
+# ---- the chain's gather mode ---------------------------------------------
 
 def gather_mode_on_card(chains, inputs, shear_out):
     """The chain's 'gather' mode at 640 -> 512 at each batch: the card's
@@ -2933,12 +2862,12 @@ def main() -> None:
     outputs = {}
     direct = {}
     crop_calls = []
-    real_crop = chains._crop_one
+    real_crop = chains._crop
     for mode, kernel in (("cuda_full", "augment_full"),
                          ("cuda_shear", "shear_rotate_packed"),
                          ("cuda_fused", "augment_fused")):
         chain = chains.AugmentChain(input_size=640, rotation=mode, device=dev)
-        chains._crop_one = lambda *a, **k: crop_calls.append(mode) \
+        chains._crop = lambda *a, **k: crop_calls.append(mode) \
             or real_crop(*a, **k)
         try:
             (outputs[mode], counts), direct[mode] = direct_count(
@@ -2947,7 +2876,7 @@ def main() -> None:
                             for i in range(3)]
                     for batch, (images, xywhn, seeds) in inputs.items()}))
         finally:
-            chains._crop_one = real_crop
+            chains._crop = real_crop
         launches[kernel] = counts[kernel]
     masks = {batch: crop_inputs(512, 1, batch, seed=batch, dev=dev)[:2]
              for batch in BATCHES}
@@ -2995,16 +2924,11 @@ def main() -> None:
                   f"card")
         print(f"main path rotate_square_shear_batch masks ({batch}, 512, 512,"
               f" 1): 3 calls == geometry.rotate_square_shear on the card")
-    # K1's placements of the crop and the flip, each a main path read on
-    # its own, and the chain's gather mode against the CPU
-    placement_launches = k1_placements(
-        chains, kernels, inputs,
-        {B: outputs["cuda_full"][B][0] for B in BATCHES}, dev)
-    launches["augment_full"] += placement_launches
+    # the chain's gather mode against the CPU
     gather_iou = gather_mode_on_card(
         chains, inputs, {B: outputs["cuda_shear"][B][0] for B in BATCHES})
     print(f"main-path kernel launches (each path read on its own): "
-          f"{launches}, K1's placements {placement_launches} of them")
+          f"{launches}")
     del outputs, rotated
     torch.cuda.synchronize()
 
@@ -3091,11 +3015,6 @@ def main() -> None:
             if B == 64 and best["tiled"] >= best["direct"]:
                 raise AssertionError(f"{name} B=64: the tiled path is not "
                                      f"faster than the direct path")
-
-    placement_ms = k1_placement_ms(
-        augment, filt, dev, card,
-        {B: dev_ms["augment_full", B] for B in BATCHES},
-        {B: bound_ms["augment_full", B] for B in BATCHES})
 
     # ---- one launch, no memset; the chain's device work --------------------
     def traced_calls(fn, calls):
@@ -3448,9 +3367,7 @@ def main() -> None:
         "device_ms": {f"B={B}": dev_ms[name, B] for B in BATCHES},
         "bound_ms_by_batch": {f"B={B}": bound_ms[name, B] for B in BATCHES},
         "plain_ms_by_batch": {f"B={B}": plain_ms[name, B] for B in BATCHES},
-    } | ({"placements": {"launches": placement_launches,
-                         "device_ms": placement_ms},
-          "gather_iou": {f"B={B}": iou for B, iou in gather_iou.items()},
+    } | ({"gather_iou": {f"B={B}": iou for B, iou in gather_iou.items()},
           "failure_contract": failure}
          if name == "augment_full" else {})
       | ({"engine": engine_kernel, "fused_chain": stage_kernel,

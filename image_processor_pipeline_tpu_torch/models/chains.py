@@ -26,22 +26,12 @@ in the JAX package whose output it equals:
                     plain twin on a CPU tensor;
   'fused_reference' the plain torch twin of that kernel ('fused_reference');
   'gather'          crop → rotate_fixed (the direct nearest inverse map,
-                    one index gather) → flip → mask → enhance ('gather');
-  'cuda_full_ikc'   'cuda_full' from the packed int32 canvas
-                    ('pallas_full_ikc');
-  'cuda_full:<flags>'  the placements of the kernel's crop and flip
-                    ('pallas_full:<flags>'): the crop cut in torch first
-                    unless 'ikc'; 'pre' flips the input (prologue), 'gath'
-                    cuts and flips it in one index pass, 'i32crop' cuts
-                    the packed int32 canvas, 'ikc' leaves the crop to the
-                    kernel, 'interp' runs the plain twin in the kernel's
-                    place (Pallas interpret mode's counterpart).
+                    one index gather) → flip → mask → enhance ('gather').
 
 The 'full' and 'fused' modes flip before they rotate and the 'shear' and
 'gather' modes rotate before they flip, so for the same seeds the 'full'
 and 'fused' modes give one image, the two 'shear' modes another and
-'gather' a third.  Every 'cuda_full' spelling gives the bytes of
-'cuda_full'.
+'gather' a third.
 """
 
 from __future__ import annotations
@@ -62,8 +52,6 @@ from image_processor_pipeline_tpu_torch.ops.augment import (
     augment_full_reference,
     augment_fused,
     augment_fused_full,
-    crop_flip_gather,
-    input_flip_bits,
     pack_rgba,
 )
 from image_processor_pipeline_tpu_torch.ops.rotate import shear_rotate_crop
@@ -78,48 +66,14 @@ _FILTER_UPPERS = ((85.0, 255.0, 255.0), (140.0, 230.0, 230.0))
 _FILTER_ZONES = ((0, 0, 0, 0), (16, 16, 8, 8))
 
 MODES = ("cuda_full", "full_reference", "shear", "cuda_shear", "cuda_fused",
-         "fused_reference", "gather", "cuda_full_ikc")
-#: the flags of a 'cuda_full:<flags>' spelling
-FULL_FLAGS = ("pre", "gath", "ikc", "i32crop", "interp")
-# flags of the JAX spelling that time a TPU pass the kernel here has not
-_TPU_PROBES = {
-    "noepi": "the XLA flip epilogue (the kernel walks back through the "
-             "flip itself)",
-    "nosmem": "the SMEM scalar prefetch of the item rows"}
-
-
-def full_flags(rotation: str):
-    """The flag set of a 'cuda_full:<flags>' or 'cuda_full_ikc' spelling
-    (None for any other mode), checked: an unknown flag raises, 'noepi'
-    and 'nosmem' raise as TPU timing probes, and 'gath' with 'ikc' or
-    'i32crop' raises (those prologues never apply the flip gather, so the
-    user flips would be dropped), as in the JAX chain."""
-    if rotation == "cuda_full_ikc":
-        return {"ikc"}
-    if not rotation.startswith("cuda_full:"):
-        return None
-    flags = {f for f in rotation.split(":", 1)[1].split(",") if f}
-    for flag in sorted(flags):
-        if flag in _TPU_PROBES:
-            raise ValueError(
-                f"flag {flag!r} of {rotation!r} is a TPU timing probe: it "
-                f"drops {_TPU_PROBES[flag]}; there is no such pass to drop "
-                f"here")
-        if flag not in FULL_FLAGS:
-            raise ValueError(f"unknown flag {flag!r} in {rotation!r}; "
-                             f"choose from {FULL_FLAGS}")
-    if "gath" in flags and flags & {"ikc", "i32crop"}:
-        raise ValueError("'gath' cannot combine with 'ikc'/'i32crop'")
-    return flags
+         "fused_reference", "gather")
 
 
 def check_mode(rotation: str) -> None:
-    """Raise ValueError unless ``rotation`` is a mode of MODES or a valid
-    'cuda_full:<flags>' spelling."""
-    if rotation not in MODES and full_flags(rotation) is None:
+    """Raise ValueError unless ``rotation`` is a mode of MODES."""
+    if rotation not in MODES:
         raise ValueError(f"unknown rotation mode {rotation!r}; choose from "
-                         f"{MODES} or 'cuda_full:<flags>' with flags from "
-                         f"{FULL_FLAGS}")
+                         f"{MODES}")
 
 
 def _seeds(seeds):
@@ -176,11 +130,6 @@ def _flip_and_params(seeds):
     return flips, prm
 
 
-def _crop_one(images, y0, x0, crop: int = CROP):
-    """Per-item crop of [B, H, W, C] at the drawn offsets ([B] tensors)."""
-    return _crop(images, y0, x0, crop)
-
-
 def _finish_one(img, flips, prms, crop: int = CROP):
     """Post-rotation stages of the 'shear' chain on a batch [B, S, S, 3]:
     flip (bit 0 x, bit 1 y), HSV mask from the flipped pixels, enhance."""
@@ -202,10 +151,11 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
     on the images' device.  xywhn: [B, 4] normalized bbox; seeds: [B]
     non-negative integers (host draws).
 
-    'cuda_full' on a CUDA device with the native draws library built
-    takes the packed path (``_packed_call``): the call's rows packed in
-    one pinned host buffer, one copy, K1 launched from it.  Every other
-    mode, device or build copies the rows one array at a time.
+    'cuda_full' on a CUDA device takes the packed path (``_packed_call``):
+    the call's rows packed by the native draws library in one pinned host
+    buffer, one copy, K1 launched from it; it raises, naming the build's
+    error, where that library did not build.  Every other mode, and
+    'cuda_full' on the CPU, copies the rows one array at a time.
 
     With the process's recorder on (``utils.profiling.recording``, or a
     torch.profiler session collecting) a call is the span ``chain.call``
@@ -216,8 +166,11 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
     served to ``chain.packed``."""
     check_mode(rotation)
     dev = images.device
-    packed = (rotation == "cuda_full" and dev.type == "cuda"
-              and native_draws.available())
+    packed = rotation == "cuda_full" and dev.type == "cuda"
+    if packed and not native_draws.available():
+        raise RuntimeError(f"'cuda_full' on {dev} packs its rows with the "
+                           f"native draws library, which did not build: "
+                           f"{native_draws.build_error()}")
     with profiling.span("chain.call"):
         with profiling.span("chain.draws"):
             y0, x0, angles = _crop_params(images.shape[1:3], xywhn, seeds,
@@ -270,7 +223,8 @@ def _launch(images, y0, x0, angles, shifts, prms, flips, crop, rotation):
     """The mode's device work on the drawn parameters, on the images'
     device."""
     if rotation == "cuda_full":
-        # the kernel reads the uint8 canvas itself: no packing pass
+        # on the CPU (the card takes _packed_call): the kernel's plain
+        # twin, given the uint8 canvas as the kernel is (no packing pass)
         return augment_fused_full(images.contiguous(), y0, x0, None, prms,
                                   flips, _FILTER_LOWERS, _FILTER_UPPERS,
                                   _FILTER_ZONES, crop=crop, shifts=shifts)
@@ -279,15 +233,12 @@ def _launch(images, y0, x0, angles, shifts, prms, flips, crop, rotation):
                                       prms, flips, _FILTER_LOWERS,
                                       _FILTER_UPPERS, _FILTER_ZONES,
                                       crop=crop, shifts=shifts)
-    flags = full_flags(rotation)
-    if flags is not None:
-        return _full_placed(images, y0, x0, shifts, prms, flips, crop, flags)
     if rotation == "cuda_shear":
         # the kernel reads its crop from the canvas: no torch crop index
         rotated = shear_rotate_crop(images.contiguous(), y0, x0, *shifts,
                                     crop)
         return _finish_one(rotated, flips, prms, crop)
-    cropped = _crop_one(images[..., :3], y0, x0, crop).contiguous()
+    cropped = _crop(images[..., :3], y0, x0, crop).contiguous()
     if rotation in ("cuda_fused", "fused_reference"):
         fn = augment_fused if rotation == "cuda_fused" \
             else augment_finish_reference
@@ -301,29 +252,6 @@ def _launch(images, y0, x0, angles, shifts, prms, flips, crop, rotation):
         return _finish_one(rotated, flips, prms, crop)
     return _finish_one(geometry.rotate_square_shear_by(cropped, *shifts),
                        flips, prms, crop)
-
-
-def _full_placed(images, y0, x0, shifts, prms, flips, crop, flags):
-    """The 'cuda_full:<flags>' spellings, as the JAX chain prepares its
-    canvas for each 'pallas_full:<flags>': the packed int32 canvas for
-    'ikc' and 'i32crop', the crop and flip cut in one uint8 index pass for
-    'gath' (the kernel then told the flips are in its input), else the
-    uint8 crop cut in torch first."""
-    if flags & {"ikc", "i32crop"}:
-        canvas = pack_rgba(images)
-    elif "gath" in flags:
-        canvas = crop_flip_gather(images, y0, x0,
-                                  *input_flip_bits(shifts[0], flips), crop)
-        y0, x0 = torch.zeros_like(y0), torch.zeros_like(x0)
-    else:
-        canvas = _crop_one(images, y0, x0, crop)
-        y0, x0 = torch.zeros_like(y0), torch.zeros_like(x0)
-    fn = augment_full_reference if "interp" in flags else augment_fused_full
-    return fn(canvas.contiguous(), y0, x0, None, prms, flips, _FILTER_LOWERS,
-              _FILTER_UPPERS, _FILTER_ZONES, crop=crop, shifts=shifts,
-              flips_in=("prologue" if "pre" in flags
-                        else "external" if "gath" in flags else "epilogue"),
-              in_kernel_crop="ikc" in flags)
 
 
 class AugmentChain(nn.Module):

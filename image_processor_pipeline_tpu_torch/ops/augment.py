@@ -15,15 +15,6 @@ size alone, which of that source's two launchers runs: one launch on a
 thread-block cluster per image, or two passes for crops too large to stage
 on chip.  Kernel and plain version get the same shift vectors, computed
 once in the wrapper.
-
-``augment_fused_full`` also takes the JAX launcher's placements of the
-user flip (``flips_in``: "epilogue", "prologue", "gather", "external")
-and of the crop (``in_kernel_crop``).  They change only what the kernel
-is given, never the kernel: the flips go into its input (bits swapped
-through the transpose, ``flip_bits_through_transpose``) and its item code
-keeps the quarter turn's transpose alone, or the crop is cut in torch
-first and the kernel gets a canvas of side S.  Every placement gives the
-bytes of the default one.
 """
 
 from __future__ import annotations
@@ -96,14 +87,6 @@ def item_codes(quad, flips):
     return d4_codes(quad.device)[quad * 4 + flips.clamp(0, 3)]
 
 
-def flip_bits_through_transpose(tbit, fy, fx):
-    """Swap the D4 flip-bit roles through a transpose:
-    Fx^fx ∘ Fy^fy ∘ T^t  =  T^t ∘ Fy^(t?fx:fy) ∘ Fx^(t?fy:fx)."""
-    t_b = torch.as_tensor(tbit).bool()
-    fy, fx = torch.as_tensor(fy), torch.as_tensor(fx)
-    return torch.where(t_b, fx, fy).bool(), torch.where(t_b, fy, fx).bool()
-
-
 def pack_rgba(images):
     """uint8 [..., H, W, 3|4] → packed int32 [..., H, W], one RGBA pixel per
     word (R in the low byte); 3-channel input gets alpha 255."""
@@ -133,13 +116,6 @@ def augment_finish_reference(images, angles, enh_params, lowers, uppers,
     if shifts is None:
         shifts = _shifts(angles, S)
     img = geometry.rotate_square_shear_by(img, *shifts)
-    return _mask_enhance(img, enh_params, lowers, uppers, zones)
-
-
-def _mask_enhance(img, enh_params, lowers, uppers, zones):
-    """The chain's last stages on rotated [B, S, S, 3] images: the HSV mask
-    into alpha, then brightness, contrast, colour and gains."""
-    S = img.shape[1]
     alpha = color_ops.color_mask_alpha(img, S, S, lowers, uppers, zones)
     prm = torch.as_tensor(enh_params, dtype=torch.float32, device=img.device)
     img = photometric.brightness(img, prm[:, 0])
@@ -147,15 +123,6 @@ def _mask_enhance(img, enh_params, lowers, uppers, zones):
     img = photometric.color_balance(img, prm[:, 2])
     img = photometric.channel_gains(img, prm[:, 3:6])
     return torch.cat([img, alpha[..., None]], dim=-1)
-
-
-def apply_d4(img, codes):
-    """out = Fx^fx(Fy^fy(T^t(img))) of [B, S, S, C] images, one D4 code
-    (t<<2 | fy<<1 | fx, the kernel's item code) an image."""
-    c = codes.to(img.device).reshape(-1, 1, 1, 1)
-    img = torch.where(((c >> 2) & 1).bool(), img.transpose(1, 2), img)
-    img = torch.where(((c >> 1) & 1).bool(), img.flip(1), img)
-    return torch.where((c & 1).bool(), img.flip(2), img)
 
 
 def _crop(images, y0, x0, crop: int):
@@ -172,26 +139,6 @@ def _crop(images, y0, x0, crop: int):
     cols = (x0[:, None] + ar)[:, None, :]
     return images[torch.arange(B, device=images.device)[:, None, None],
                   rows, cols]
-
-
-def crop_flip_gather(images, y0, x0, fy_in, fx_in, S: int):
-    """The crop and the flip in one index pass (the JAX
-    ``crop_flip_gather``): out[b, i, j] = images[b, y0 + (fy_in ? S-1-i :
-    i), x0 + (fx_in ? S-1-j : j)] of [B, H, W] packed or [B, H, W, C]
-    images, an index that leaves the canvas clamped as jnp's gather clamps
-    it (a negative one counts from the end first)."""
-    B, H, W = images.shape[:3]
-    dev = images.device
-    ar = torch.arange(S, device=dev)
-
-    def index(off, flip, size):
-        idx = off.to(dev).long()[:, None] + torch.where(
-            flip.to(dev).bool()[:, None], S - 1 - ar, ar)
-        return torch.where(idx < 0, idx + size, idx).clamp(0, size - 1)
-
-    rows = index(y0, fy_in, H)[:, :, None]
-    cols = index(x0, fx_in, W)[:, None, :]
-    return images[torch.arange(B, device=dev)[:, None, None], rows, cols]
 
 
 # CTAs in one image's thread-block cluster on the cluster path: 16, the
@@ -240,87 +187,16 @@ def canvas_u8(canvas):
                      "[B, SIN, SIN, 3|4]")
 
 
-#: where the user flip is applied (the JAX launcher's ``flips_in``)
-FLIP_PLACEMENTS = ("epilogue", "prologue", "gather", "external")
-
-
-def input_flip_bits(quad, flips):
-    """(fy_in, fx_in) [B] bool: the user flips to apply to the input
-    before the kernel's transpose, so that the kernel's quarter turn alone
-    (code ``t << 2``) gives the D4 element of quarter turn and flip."""
-    codes = item_codes(quad, flips)
-    return flip_bits_through_transpose(codes >> 2, (codes >> 1) & 1,
-                                       codes & 1)
-
-
-def place(canvas, y0, x0, quad, flips, S: int, flips_in: str,
-          in_kernel_crop: bool):
-    """What K1 is given under a placement: (uint8 canvas [B, SIN', SIN',
-    C], y0, x0, D4 item codes [B]), from the caller's canvas (packed int32
-    or uint8) and draws.  "epilogue": the D4 code of quarter turn and user
-    flip together.  "prologue" and "gather": the flips go into the input
-    (``input_flip_bits``) and the code keeps the transpose alone
-    (``t << 2``); "gather" cuts the crop and flips it in one index pass
-    (``crop_flip_gather``).  "external": the caller flipped the input
-    already.  ``in_kernel_crop=False`` cuts the crop in torch first (on
-    the canvas's own words, so a packed canvas is cut as int32), and the
-    kernel gets a canvas of side S.  The JAX launcher's checks hold: a
-    prologue needs a cut crop and a gather no in-kernel crop."""
-    if flips_in not in FLIP_PLACEMENTS:
-        raise ValueError(f"unknown flips_in {flips_in!r}; choose from "
-                         f"{FLIP_PLACEMENTS}")
-    if flips_in == "gather" and in_kernel_crop:
-        raise ValueError("flips_in='gather' requires the torch crop "
-                         "(in_kernel_crop=False)")
-    quad = quad.to(canvas.device)
-    codes = item_codes(quad, flips)
-    zeros = torch.zeros_like(y0)
-    if flips_in == "gather":
-        canvas = crop_flip_gather(canvas, y0, x0, *input_flip_bits(
-            quad, flips), S)
-        y0 = x0 = zeros
-    elif not in_kernel_crop and canvas.shape[1] > S:
-        canvas = _crop(canvas, y0, x0, S)
-        y0 = x0 = zeros
-    if flips_in == "prologue":
-        if canvas.shape[1] > S:
-            raise ValueError("flips_in='prologue' requires the torch crop "
-                             "(in_kernel_crop=False)")
-        fy_in, fx_in = (f.reshape(-1, *[1] * (canvas.ndim - 1))
-                        for f in input_flip_bits(quad, flips))
-        canvas = torch.where(fy_in, canvas.flip(1), canvas)
-        canvas = torch.where(fx_in, canvas.flip(2), canvas)
-    if flips_in != "epilogue":
-        codes = codes & 4
-    return canvas_u8(canvas.contiguous()), y0, x0, codes
-
-
 def augment_full_reference(canvas, y0, x0, angles, enh_params, flips,
                            lowers, uppers, zones, crop: int = 512,
-                           shifts=None, flips_in: str = "epilogue",
-                           in_kernel_crop: bool = True):
+                           shifts=None):
     """Plain twin of the whole chain: crop → user flip →
     rotate_square_shear → mask → enhance.  canvas: packed int32
-    [B, SIN, SIN] or uint8 [B, SIN, SIN, 3|4] (alpha ignored).
-
-    Under any other placement (``flips_in``, ``in_kernel_crop``: see
-    ``place``) it takes what the kernel would be given and computes the
-    kernel's function on it in torch ops: the crop, the D4 element of the
-    item code (``apply_d4``), the three shears, mask and enhance."""
-    if flips_in == "epilogue" and in_kernel_crop:
-        rgb = canvas_u8(canvas.contiguous())[..., :3]
-        cropped = _crop(rgb, y0, x0, crop)
-        return augment_finish_reference(cropped, angles, enh_params, lowers,
-                                        uppers, zones, flips=flips,
-                                        shifts=shifts)
-    if shifts is None:
-        shifts = _shifts(angles, crop)
-    src, y0, x0, codes = place(canvas, y0, x0, shifts[0], flips, crop,
-                               flips_in, in_kernel_crop)
-    img = apply_d4(_crop(src[..., :3], y0, x0, crop), codes)
-    img = geometry.rotate_square_shear_by(img, torch.zeros_like(shifts[0]),
-                                          *shifts[1:])
-    return _mask_enhance(img, enh_params, lowers, uppers, zones)
+    [B, SIN, SIN] or uint8 [B, SIN, SIN, 3|4] (alpha ignored)."""
+    rgb = canvas_u8(canvas.contiguous())[..., :3]
+    return augment_finish_reference(_crop(rgb, y0, x0, crop), angles,
+                                    enh_params, lowers, uppers, zones,
+                                    flips=flips, shifts=shifts)
 
 
 def _check(name, t, dtype, shape, device):
@@ -346,22 +222,24 @@ def _checked_shifts(angles, shifts, B: int, S: int, dev):
 
 
 def chain_args(canvas, y0, x0, shifts, enh_params, flips, lowers, uppers,
-               zones, S: int, codes=None):
+               zones, S: int):
     """launch_chain's arguments after its name, for a uint8 canvas
     [B, SIN, SIN, 3|4] on the card: the canvas, one 16-byte item row per
     image (y0, x0, D4 code of quarter turn and flip, unused), the shift
-    vectors, the enhance parameters, the host filter rows and S.
-    ``codes``: the D4 item codes to use instead (``place``)."""
-    if codes is None:
-        codes = item_codes(shifts[0], flips)
+    vectors, the enhance parameters, the host filter rows (``filter_rows``,
+    built once a process for a stack given as tuples, as every chain mode
+    gives it) and S."""
+    codes = item_codes(shifts[0], flips)
     items = torch.stack([y0, x0, codes, torch.zeros_like(codes)], dim=1)
-    filt = torch.cat(filter_stack(lowers, uppers, zones), dim=1).contiguous()
-    return canvas, items, shifts, enh_params.contiguous(), filt, S
+    stack = (lowers, uppers, zones)
+    rows = filter_rows if all(isinstance(a, tuple) for a in stack) \
+        else filter_rows.__wrapped__
+    return canvas, items, shifts, enh_params.contiguous(), rows(*stack), S
 
 
 @functools.lru_cache(maxsize=None)
 def filter_rows(lowers, uppers, zones):
-    """chain_args' host filter rows [F, 10] int32 of a filter stack given
+    """The kernel's host filter rows [F, 10] int32 of a filter stack given
     as tuples, built once a process."""
     return torch.cat(filter_stack(lowers, uppers, zones), dim=1).contiguous()
 
@@ -415,8 +293,7 @@ def max_active_clusters(S: int, C: int = 3, cluster: int = CLUSTER) -> int:
 
 def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
                        uppers, zones, crop: int = 512, shifts=None,
-                       flips_in: str = "epilogue",
-                       in_kernel_crop: bool = True, staged=None):
+                       staged=None):
     """The whole chain for a batch: crop → flip → rotate → mask → enhance.
 
     canvas: packed int32 [B, SIN, SIN] RGBA (see pack_rgba) or uint8
@@ -426,19 +303,16 @@ def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
     flips: [B] int32 user flip codes (0=o, 1=h, 2=v, 3=hv);
     lowers/uppers/zones: the static filter stack ([F, 3], [F, 3], [F, 4]);
     shifts: (quad [B], sh1 [B, S], sh2 [B, S]) int32 to use in place of
-    ``angles`` (which may then be None); flips_in / in_kernel_crop: the
-    placement of the user flip and of the crop (``place``; the default is
-    the kernel's own crop with the flip in its item code).  Returns
-    [B, S, S, 4] uint8, the same bytes under every placement.  CPU tensors
-    run augment_full_reference; CUDA tensors launch the kernel (no
-    fallback); other devices raise.
+    ``angles`` (which may then be None).  The kernel cuts the crop itself
+    and its item code holds the quarter turn and the flip together.
+    Returns [B, S, S, 4] uint8.  CPU tensors run augment_full_reference;
+    CUDA tensors launch the kernel (no fallback); other devices raise.
 
     staged: (buffer, layout), the call's item rows, enhance rows and
     shift vectors packed at ``native_draws.pack_layout``'s offsets
     (``native_draws.chain_pack``) in one uint8 buffer on the canvas's
-    card, from which the kernel is launched under the default placement;
-    y0, x0, angles, enh_params, flips and shifts are then None, and
-    lowers, uppers and zones tuples.
+    card, from which the kernel is launched; y0, x0, angles, enh_params,
+    flips and shifts are then None, and lowers, uppers and zones tuples.
     """
     if staged is not None:
         return _launch_staged(canvas, staged, lowers, uppers, zones, crop)
@@ -455,15 +329,11 @@ def augment_fused_full(canvas, y0, x0, angles, enh_params, flips, lowers,
     if dev.type == "cpu":
         return augment_full_reference(canvas, y0, x0, angles, enh_params,
                                       flips, lowers, uppers, zones, crop=S,
-                                      shifts=shifts, flips_in=flips_in,
-                                      in_kernel_crop=in_kernel_crop)
+                                      shifts=shifts)
     if dev.type != "cuda":
         raise ValueError(f"augment_fused_full runs on cpu or cuda, not {dev}")
-    src, y0, x0, codes = place(canvas, y0, x0, shifts[0], flips, S,
-                               flips_in, in_kernel_crop)
     return launch_chain("augment_full", *chain_args(
-        src, y0, x0, shifts, enh_params, flips, lowers, uppers, zones, S,
-        codes=codes))
+        src, y0, x0, shifts, enh_params, flips, lowers, uppers, zones, S))
 
 
 def _launch_staged(canvas, staged, lowers, uppers, zones, S: int):

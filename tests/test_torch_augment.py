@@ -16,6 +16,7 @@ import torch
 from image_processor_pipeline_tpu.ops.pallas import augment as jaug
 from image_processor_pipeline_tpu_torch import interop, kernels
 from image_processor_pipeline_tpu_torch.ops import augment as taug
+from image_processor_pipeline_tpu_torch.ops import native_draws
 
 LOWERS = ((35.0, 60.0, 60.0), (100.0, 40.0, 40.0))
 UPPERS = ((85.0, 255.0, 255.0), (140.0, 230.0, 230.0))
@@ -233,13 +234,6 @@ def test_pack_rgba_matches_jax(channels):
 
 def test_d4_table_and_flip_bits_match_jax():
     np.testing.assert_array_equal(taug._D4_TABLE, jaug._D4_TABLE)
-    bits = np.asarray([(t, fy, fx) for t in (0, 1) for fy in (0, 1)
-                       for fx in (0, 1)], np.int32).T
-    want = jaug.flip_bits_through_transpose(*(jnp.asarray(b) for b in bits))
-    got = taug.flip_bits_through_transpose(*(torch.as_tensor(b)
-                                             for b in bits))
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_filter_stack_rounds_like_cv2():
@@ -343,7 +337,7 @@ def test_augment_fused_rejects_bad_inputs(bad):
                            flips=tflips, shifts=shifts)
 
 
-# -- K1's placements of the flip and the crop ---------------------------------
+# -- K1's one placement against the JAX launcher ------------------------------
 
 def fused_test_batch(seed, flips=None):
     """tests/test_fused.py:242-310's inputs (B=8, 96 -> 64): numpy draws
@@ -361,35 +355,35 @@ def fused_test_batch(seed, flips=None):
 
 
 @pytest.fixture(scope="module", params=[
-    ("prologue", 0, None), ("gather", 1, [0, 1, 2, 3, 3, 2, 1, 0])],
-    ids=["prologue", "gather"])
+    (0, None), (1, [0, 1, 2, 3, 3, 2, 1, 0])], ids=["prologue", "gather"])
 def placed_batch(request):
-    """A placement, tests/test_fused.py's inputs for it and the JAX
-    launcher's output under that placement in interpret mode."""
-    flips_in, seed, flips = request.param
+    """The inputs of tests/test_fused.py's prologue test (flips drawn) or
+    gather test (flips given), and the JAX launcher's output for them in
+    interpret mode, under its default placement."""
+    seed, flips = request.param
     data = fused_test_batch(seed, flips)
     imgs, y0, x0, angles, prms, flips = data
     want = np.asarray(jaug.augment_fused_pallas_full(
         jaug.pack_rgba(jnp.asarray(imgs)), jnp.asarray(y0), jnp.asarray(x0),
         jnp.asarray(angles), jnp.asarray(prms), jnp.asarray(flips), LOWERS,
-        UPPERS, ZONES, crop=64, interpret=True, flips_in=flips_in))
-    return flips_in, data, want
+        UPPERS, ZONES, crop=64, interpret=True))
+    return data, want
 
 
 @pytest.mark.parametrize("form", ["packed", "u8"])
 def test_placements_match_jax_interpret(placed_batch, form):
-    """The prologue and gather placements (torch crop) equal the JAX
-    launcher's interpret-mode output and the port's default plain twin,
-    byte for byte, given JAX's shift vectors; packed and uint8 canvases."""
-    flips_in, data, want = placed_batch
+    """The wrapper's one placement (the crop cut by the kernel, quarter
+    turn and flip in its item code) equals the JAX launcher's
+    interpret-mode output and the port's plain twin, byte for byte, given
+    JAX's shift vectors; packed and uint8 canvases."""
+    data, want = placed_batch
     packed, y0, x0, _, prms, flips = port_args(*data)
     canvas = packed if form == "packed" \
         else torch.as_tensor(data[0]).contiguous()
     shifts = jax_shifts(data[3], 64)
     kernels.reset_launch_counts()
     got = taug.augment_fused_full(canvas, y0, x0, None, prms, flips, LOWERS,
-                                  UPPERS, ZONES, crop=64, shifts=shifts,
-                                  flips_in=flips_in, in_kernel_crop=False)
+                                  UPPERS, ZONES, crop=64, shifts=shifts)
     assert all(n == 0 for n in kernels.launch_counts.values())
     np.testing.assert_array_equal(got.numpy(), want)
     default = taug.augment_full_reference(packed, y0, x0, None, prms, flips,
@@ -398,80 +392,14 @@ def test_placements_match_jax_interpret(placed_batch, form):
     assert torch.equal(got, default)
 
 
-@pytest.mark.parametrize("flips_in,in_kernel_crop", [
-    ("epilogue", False), ("prologue", False), ("gather", False),
-    ("external", False), ("external", True)])
-def test_every_placement_equals_the_default_plain_twin(flips_in,
-                                                       in_kernel_crop):
-    """Each placement gives the default's bytes; 'external' is handed the
-    input flipped as crop_flip_gather flips it (bits swapped through the
-    transpose), cut first where the crop is the torch's."""
-    imgs, y0, x0, angles, prms, flips = make_batch(8, 96, 64, seed=31)
-    packed, ty0, tx0, tang, tprms, tflips = port_args(imgs, y0, x0, angles,
-                                                      prms, flips)
-    shifts = taug._shifts(tang, 64)
-    default = taug.augment_full_reference(packed, ty0, tx0, None, tprms,
-                                          tflips, LOWERS, UPPERS, ZONES,
-                                          crop=64, shifts=shifts)
-    canvas = torch.as_tensor(imgs)
-    if flips_in == "external":
-        fy_in, fx_in = taug.input_flip_bits(shifts[0], tflips)
-        if in_kernel_crop:
-            # flip each crop window in place on its canvas
-            cut = taug.crop_flip_gather(canvas, ty0, tx0, fy_in, fx_in, 64)
-            canvas = canvas.clone()
-            for b in range(8):
-                canvas[b, y0[b]:y0[b] + 64, x0[b]:x0[b] + 64] = cut[b]
-        else:
-            canvas = taug.crop_flip_gather(canvas, ty0, tx0, fy_in, fx_in,
-                                           64)
-            ty0, tx0 = torch.zeros_like(ty0), torch.zeros_like(tx0)
-    got = taug.augment_fused_full(canvas.contiguous(), ty0, tx0, None, tprms,
-                                  tflips, LOWERS, UPPERS, ZONES, crop=64,
-                                  shifts=shifts, flips_in=flips_in,
-                                  in_kernel_crop=in_kernel_crop)
-    assert torch.equal(got, default)
-
-
-def test_placement_checks_raise_as_jax_does():
-    imgs, y0, x0, angles, prms, flips = make_batch(2, 96, 64, seed=32)
-    packed, ty0, tx0, tang, tprms, tflips = port_args(imgs, y0, x0, angles,
-                                                      prms, flips)
-    args = (packed, ty0, tx0, tang, tprms, tflips, LOWERS, UPPERS, ZONES)
-    for fn in (taug.augment_fused_full, taug.augment_full_reference):
-        with pytest.raises(ValueError, match="prologue.*torch crop"):
-            fn(*args, crop=64, flips_in="prologue")
-        with pytest.raises(ValueError, match="gather.*torch crop"):
-            fn(*args, crop=64, flips_in="gather")
-        with pytest.raises(ValueError, match="gather.*torch crop"):
-            fn(*args, crop=64, flips_in="gather", in_kernel_crop=True)
-        with pytest.raises(ValueError, match="flips_in"):
-            fn(*args, crop=64, flips_in="xla", in_kernel_crop=False)
-    # the JAX launcher raises for the same two
-    jargs = (jaug.pack_rgba(jnp.asarray(imgs)), y0, x0, angles, prms, flips,
-             LOWERS, UPPERS, ZONES)
-    for kw in ({"flips_in": "prologue", "in_kernel_crop": True},
-               {"flips_in": "gather", "in_kernel_crop": True}):
-        with pytest.raises(ValueError):
-            jaug.augment_fused_pallas_full(*jargs, crop=64, interpret=True,
-                                           **kw)
-
-
-@pytest.mark.parametrize("channels", [0, 3])
-def test_crop_flip_gather_matches_jax(channels):
-    """One index pass of crop and flip on packed [B, H, W] and uint8
-    [B, H, W, 3] canvases, every flip pair."""
-    rng = np.random.default_rng(33 + channels)
-    shape = (4, 40, 48) + ((channels,) if channels else ())
-    imgs = rng.integers(0, 2**31 if not channels else 256, shape).astype(
-        np.int32 if not channels else np.uint8)
-    y0 = np.asarray([0, 3, 7, 8], np.int32)
-    x0 = np.asarray([16, 0, 5, 9], np.int32)
-    fy = np.asarray([0, 1, 0, 1], bool)
-    fx = np.asarray([0, 0, 1, 1], bool)
-    want = np.asarray(jaug.crop_flip_gather(
-        jnp.asarray(imgs), jnp.asarray(y0), jnp.asarray(x0),
-        jnp.asarray(fy), jnp.asarray(fx), 32))
-    got = taug.crop_flip_gather(*(torch.as_tensor(a) for a in (
-        imgs, y0, x0, fy, fx)), 32)
-    np.testing.assert_array_equal(got.numpy(), want)
+def test_staged_rows_refuse_a_cpu_canvas():
+    """The launch from packed rows runs on the card only: a CPU canvas is
+    refused before any work, naming both devices."""
+    imgs = torch.zeros((2, 96, 96, 3), dtype=torch.uint8)
+    layout = native_draws.pack_layout(2, 64)
+    buf = torch.zeros(layout.nbytes, dtype=torch.uint8)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="canvas on cpu, rows on cpu"):
+        taug.augment_fused_full(imgs, None, None, None, None, None, LOWERS,
+                                UPPERS, ZONES, crop=64, staged=(buf, layout))
+    assert all(n == 0 for n in kernels.launch_counts.values())

@@ -175,24 +175,36 @@ def test_augment_chain_module_matches_jax_640():
 
 
 def test_chain_rejects_bad_configuration():
-    """What is left to refuse: a canvas smaller than the crop, an unknown
-    mode, the TPU timing probes 'noepi' and 'nosmem' (named, with why) and
-    'gath' with 'ikc' or 'i32crop', from the module and from the
-    function."""
+    """What is left to refuse: a canvas smaller than the crop and a mode
+    of the JAX package's that the port names otherwise, from the module
+    and from the function."""
     with pytest.raises(ValueError):
         tchains.AugmentChain(input_size=500, device="cpu")
     images, xywhn, seeds = chain_inputs(1, 96, seed=0)
-    for bad, match in (("pallas_full", "unknown rotation mode"),
-                       ("cuda_full:noepi", "'noepi'.*TPU timing probe"),
-                       ("cuda_full:nosmem", "'nosmem'.*TPU timing probe"),
-                       ("cuda_full:gath,ikc", "'gath' cannot combine"),
-                       ("cuda_full:gath,i32crop", "'gath' cannot combine"),
-                       ("cuda_full:pre,bogus", "unknown flag 'bogus'")):
-        with pytest.raises(ValueError, match=match):
-            tchains.AugmentChain(rotation=bad, device="cpu")
-        with pytest.raises(ValueError, match=match):
-            tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
-                                  bad)
+    with pytest.raises(ValueError, match="unknown rotation mode"):
+        tchains.AugmentChain(rotation="pallas_full", device="cpu")
+    with pytest.raises(ValueError, match="unknown rotation mode"):
+        tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                              "pallas_full")
+
+
+#: the spellings of K1's placements that the chain once took, and a TPU
+#: timing probe of the JAX chain's: each is an unknown mode now
+RETIRED_SPELLINGS = ("cuda_full_ikc", "cuda_full:", "cuda_full:pre",
+                     "cuda_full:gath", "cuda_full:i32crop", "cuda_full:ikc",
+                     "cuda_full:interp", "cuda_full:noepi")
+
+
+@pytest.mark.parametrize("spelling", RETIRED_SPELLINGS)
+def test_retired_spellings_raise(spelling):
+    """Each retired spelling is refused as an unknown rotation mode, by
+    the module and by the function."""
+    images, xywhn, seeds = chain_inputs(1, 96, seed=0)
+    with pytest.raises(ValueError, match="unknown rotation mode"):
+        tchains.AugmentChain(rotation=spelling, device="cpu")
+    with pytest.raises(ValueError, match="unknown rotation mode"):
+        tchains.augment_chain(torch.as_tensor(images), xywhn, seeds, 64,
+                              spelling)
 
 
 def test_port_never_imports_jax():
@@ -214,7 +226,7 @@ def test_port_never_imports_jax():
 def test_cuda_shear_reads_the_canvas_without_a_crop_index(monkeypatch,
                                                           channels):
     """'cuda_shear' hands the canvas and offsets to shear_rotate_crop (no
-    _crop_one), launches nothing on the CPU, and equals 'shear' on 3- and
+    torch crop), launches nothing on the CPU, and equals 'shear' on 3- and
     4-channel canvases."""
     images, xywhn, seeds = chain_inputs(4, 96, seed=14)
     if channels == 4:
@@ -222,8 +234,8 @@ def test_cuda_shear_reads_the_canvas_without_a_crop_index(monkeypatch,
         images = np.concatenate([images, alpha], axis=-1)
     images = torch.as_tensor(images)
     crops = []
-    real = tchains._crop_one
-    monkeypatch.setattr(tchains, "_crop_one",
+    real = tchains._crop
+    monkeypatch.setattr(tchains, "_crop",
                         lambda *a, **k: crops.append(1) or real(*a, **k))
     kernels.reset_launch_counts()
     got = tchains.augment_chain(images, xywhn, seeds, 64, "cuda_shear")
@@ -299,8 +311,7 @@ def test_chain_takes_its_shift_vectors_from_the_host_angles(monkeypatch,
     np.testing.assert_array_equal(a.numpy(), angles)
     monkeypatch.setattr(tgeo, "shear_params", real)
     twin = {"cuda_full": "full_reference", "cuda_fused": "fused_reference",
-            "cuda_shear": "shear",
-            "cuda_full_ikc": "full_reference"}.get(mode, mode)
+            "cuda_shear": "shear"}.get(mode, mode)
     assert torch.equal(got, tchains.augment_chain(
         torch.as_tensor(images), xywhn, seeds, 64, twin))
 
@@ -412,44 +423,17 @@ def test_gather_footprint_agrees_with_shear():
     assert (nz_a & nz_b).sum() / max(1, (nz_a | nz_b).sum()) > 0.8
 
 
-# -- the 'cuda_full' spellings: K1's placements ------------------------------
+# -- the canvas's alpha -------------------------------------------------------
 
-FULL_SPELLINGS = ("cuda_full_ikc", "cuda_full:", "cuda_full:pre",
-                  "cuda_full:gath", "cuda_full:i32crop",
-                  "cuda_full:i32crop,pre", "cuda_full:ikc",
-                  "cuda_full:pre,interp", "cuda_full:gath,interp",
-                  "cuda_full:ikc,interp", "cuda_full:interp")
-
-
-@pytest.mark.parametrize("mode", FULL_SPELLINGS)
-@pytest.mark.parametrize("channels", [3, 4])
-def test_full_spellings_give_the_bytes_of_cuda_full(mode, channels):
-    """Whichever flags, the bytes of the default 'cuda_full', on 3- and
-    4-channel canvases; nothing launches on the CPU."""
+@pytest.mark.parametrize("mode", tchains.MODES)
+def test_every_mode_ignores_the_canvas_alpha(mode):
+    """A 4-channel canvas whose alpha is 99 gives the bytes of its
+    3-channel canvas in every mode, and nothing launches on the CPU."""
     images, xywhn, seeds = chain_inputs(8, 96, seed=24)
-    if channels == 4:
-        alpha = np.full((*images.shape[:3], 1), 99, np.uint8)
-        images = np.concatenate([images, alpha], axis=-1)
-    images = torch.as_tensor(images)
+    alpha = np.full((*images.shape[:3], 1), 99, np.uint8)
+    rgba = torch.as_tensor(np.concatenate([images, alpha], axis=-1))
     kernels.reset_launch_counts()
-    got = tchains.augment_chain(images, xywhn, seeds, 64, mode)
+    got = tchains.augment_chain(rgba, xywhn, seeds, 64, mode)
     assert all(n == 0 for n in kernels.launch_counts.values())
-    assert torch.equal(got, tchains.augment_chain(images, xywhn, seeds, 64,
-                                                  "cuda_full"))
-
-
-def test_chain_gath_flag_matches_jax():
-    """tests/test_chains.py:139-152: the 'gath' spelling, through the plain
-    twin ('interp'), equals JAX's 'pallas_full:gath,interp' (the Pallas
-    kernel in interpret mode) byte for byte."""
-    B = 4
-    rng = np.random.default_rng(4)
-    images = rng.integers(0, 256, (B, 96, 96, 3), np.uint8)
-    xy = np.tile(np.asarray([0.5, 0.5, 0.2, 0.2], np.float32), (B, 1))
-    seeds = np.arange(10, 10 + B, dtype=np.uint32)
-    want = np.asarray(jchains.augment_chain(images, xy, seeds, 64,
-                                            "pallas_full:gath,interp"))
-    for mode in ("cuda_full:gath,interp", "cuda_full:gath"):
-        got = tchains.augment_chain(torch.as_tensor(images), xy, seeds, 64,
-                                    mode)
-        assert_chain_equal(got.numpy(), want, f1_items(images, xy, seeds, 64))
+    assert torch.equal(got, tchains.augment_chain(torch.as_tensor(images),
+                                                  xywhn, seeds, 64, mode))

@@ -109,27 +109,6 @@ def test_chain_through_kernel_on_card(cuda_device, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,launches", [
-    ("cuda_full_ikc", 1), ("cuda_full:", 1), ("cuda_full:pre", 1),
-    ("cuda_full:gath", 1), ("cuda_full:i32crop", 1),
-    ("cuda_full:i32crop,pre", 1), ("cuda_full:pre,interp", 0),
-    ("cuda_full:gath,interp", 0)])
-def test_each_placement_on_card_equals_cuda_full(cuda_device, mode,
-                                                 launches):
-    """Each 'cuda_full' spelling (K1's placements of the crop and the
-    flip) launches K1 once on the card, 'interp' never, and gives the
-    bytes of the default 'cuda_full', at 640 -> 512 with every flip."""
-    chain = chains.AugmentChain(input_size=640, device=cuda_device)
-    images, xywhn, seeds = chain.example_inputs(batch=8)
-    want = chain(images, xywhn, seeds)
-    kernels.reset_launch_counts()
-    got = chains.augment_chain(images, xywhn, seeds, rotation=mode)
-    assert kernels.launch_counts["augment_full"] == launches
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
 def test_gather_chain_on_card_matches_the_cpu(cuda_device):
     """'gather' on the card (one index gather, the host's cos/sin) equals
     the same chain on the CPU, byte for byte."""
@@ -219,26 +198,36 @@ def test_back_to_back_packed_calls_equal_synchronised_ones(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["cuda_shear", "no_library"])
-def test_other_modes_and_builds_take_todays_glue(cuda_device, monkeypatch,
-                                                 recorder, case):
-    """'cuda_shear', and 'cuda_full' without the native library, copy
-    their arrays one at a time, count no packed call, and give today's
-    bytes."""
+def test_other_modes_take_todays_glue(cuda_device, recorder):
+    """'cuda_shear' copies its arrays one at a time, counts no packed call
+    and gives today's bytes."""
     images, xywhn, seeds = packed_inputs(16, cuda_device, seed=7)
-    if case == "cuda_shear":
-        want = chains.augment_chain(images, xywhn, seeds, rotation="shear")
-    else:
-        want = todays_glue(images, xywhn, seeds)
-        monkeypatch.setattr(native_draws, "available", lambda: False)
+    want = chains.augment_chain(images, xywhn, seeds, rotation="shear")
     with profiling.recording():
-        got = chains.augment_chain(
-            images, xywhn, seeds,
-            rotation="cuda_shear" if case == "cuda_shear" else "cuda_full")
+        got = chains.augment_chain(images, xywhn, seeds,
+                                   rotation="cuda_shear")
     assert "chain.packed" not in recorder.counters
     assert recorder.counters["chain.h2d_copies"] == 7
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_full_without_the_library_raises_on_card(cuda_device,
+                                                      monkeypatch, recorder):
+    """'cuda_full' has no other glue on the card: without the native
+    library it raises, naming the build's error, before any draw, copy or
+    launch."""
+    images, xywhn, seeds = packed_inputs(16, cuda_device, seed=7)
+    monkeypatch.setattr(native_draws, "available", lambda: False)
+    monkeypatch.setattr(native_draws, "build_error",
+                        lambda: "g++: the build's error")
+    kernels.reset_launch_counts()
+    with profiling.recording():
+        with pytest.raises(RuntimeError, match=r"g\+\+: the build's error"):
+            chains.augment_chain(images, xywhn, seeds)
+    assert not recorder.counts and not recorder.counters
+    assert kernels.launch_counts["augment_full"] == 0
 
 
 def rotate_args(B, S, C, dev):

@@ -35,7 +35,7 @@ from image_processor_pipeline_tpu.transforms import fused as jfused
 from image_processor_pipeline_tpu_torch.transforms import fused as tfused
 from torch_port_data import make_dataset, make_image
 
-N_PIPELINES = 12
+N_PIPELINES = 28
 GENERATOR_SEED = 12
 HSV = [(0, 0, 0, 180, 255, 120)]
 ROT = {"num_rotations": 2, "method": "shear"}
