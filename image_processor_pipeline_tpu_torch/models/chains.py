@@ -162,8 +162,9 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
     around ``chain.draws``, ``chain.shifts``, ``chain.h2d`` and
     ``chain.launch``, and adds the arrays it copies to the images' device
     to the counter ``chain.h2d_copies``, each draw function the native
-    pass served to ``chain.draws_native`` and each call the packed path
-    served to ``chain.packed``."""
+    pass served to ``chain.draws_native``, each call the packed path
+    served to ``chain.packed`` and each call whose shear factors came from
+    the native pass to ``chain.factors_native``."""
     check_mode(rotation)
     dev = images.device
     packed = rotation == "cuda_full" and dev.type == "cuda"
@@ -195,17 +196,19 @@ def augment_chain(images, xywhn, seeds, crop: int = CROP,
 
 def _packed_call(images, y0, x0, angles, flips, prms, crop):
     """'cuda_full' on the card from the host draws: the per-item shear
-    factors in torch (``geometry.shear_factors``, as ``shear_params``
-    computes them), then the item rows, enhance rows and shift vectors
-    written by one native call into a buffer of torch's pinned host
-    allocator (which hands a block out again only once the copies from it
-    have completed), one copy of it to the card, and K1 launched from its
-    sections with no device work in between."""
+    factors by one native pass and torch's ``tan`` and ``sin``
+    (``native_draws.shear_factors``, ``geometry.shear_factors`` bit for
+    bit), then the item rows, enhance rows and shift vectors written by
+    one native call into a buffer of torch's pinned host allocator (which
+    hands a block out again only once the copies from it have completed),
+    one copy of it to the card, and K1 launched from its sections with no
+    device work in between."""
     with profiling.span("chain.shifts"):
-        quad, a, b = geometry.shear_factors(torch.from_numpy(angles))
+        quad, a, s = native_draws.shear_factors(angles)
+        profiling.count("chain.factors_native")
         layout = native_draws.pack_layout(len(y0), crop)
         host = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=True)
-        native_draws.chain_pack(host, layout, y0, x0, flips, prms, quad, a, b,
+        native_draws.chain_pack(host, layout, y0, x0, flips, prms, quad, a, s,
                                 _D4_CODES, *geometry.shift_limits(crop))
     with profiling.span("chain.h2d"):
         profiling.count("chain.h2d_copies")

@@ -1,5 +1,6 @@
 // The flagship chain's per-item host draws (models/chains.py:_crop_params
-// and _flip_and_params) in one pass over the batch, and the pack of a
+// and _flip_and_params) in one pass over the batch, the exact part of the
+// shear factors of their angles (ipp_chain_angles), and the pack of a
 // call's rows for K1 (ipp_chain_pack).  The draws are the Threefry-2x32
 // draws of ``jax.random`` under partitionable counters, bit for bit those
 // of random.py, the numpy twin that the tests hold this file to.
@@ -39,6 +40,13 @@ constexpr float kAngleLo = static_cast<float>(1.0),
                 kEnhanceHi = static_cast<float>(1.3),
                 kGainLo = static_cast<float>(0.75),
                 kGainHi = static_cast<float>(1.25);
+
+// geometry.py's float32 constants of the rotation: numpy's float32 of
+// Python's double
+constexpr float kDeg2Rad = static_cast<float>(3.141592653589793 / 180),
+                kTwoPi = static_cast<float>(2 * 3.141592653589793),
+                kPi4 = static_cast<float>(3.141592653589793 / 4),
+                kPi2 = static_cast<float>(3.141592653589793 / 2);
 
 inline uint32_t rotl(uint32_t x, int d) { return (x << d) | (x >> (32 - d)); }
 
@@ -224,6 +232,28 @@ void ipp_chain_flip_draws(const uint64_t* seeds, int B, int32_t* flips,
   }
 }
 
+// geometry.shear_factors' exact float32 and integer work for B angles in
+// degrees, each operation rounded on its own, in torch's order:
+//   theta = fmod(angle * deg2rad, 2 pi), plus 2 pi where negative
+//   quad  = remainder(to_int32(floor((theta + pi/4) / (pi/2))), 4)
+//   phi   = theta - float(quad) * (pi/2)
+// writing quad, phi / 2 and phi; the caller takes tan(phi / 2) and
+// sin(phi) from torch, as the reference does.  to_int32 is trunc_i32's
+// conversion, and & 3 is torch.remainder(., 4) in two's complement.
+void ipp_chain_angles(int B, const float* angles, int32_t* quad,
+                      float* half_phi, float* phi) {
+  for (int i = 0; i < B; ++i) {
+    float theta = std::fmod(angles[i] * kDeg2Rad, kTwoPi);
+    if (theta < 0.0f) theta = theta + kTwoPi;
+    const int32_t q = static_cast<int32_t>(
+        trunc_i32(std::floor((theta + kPi4) / kPi2)) & 3);
+    const float p = theta - static_cast<float>(q) * kPi2;
+    quad[i] = q;
+    half_phi[i] = p / 2.0f;
+    phi[i] = p;
+  }
+}
+
 // The rows K1 reads for one chain call (models/chains.py:_packed_call),
 // written into one host buffer that goes to the card in one copy; the
 // caller places each section (ops/native_draws.py:pack_layout):
@@ -231,8 +261,10 @@ void ipp_chain_flip_draws(const uint64_t* seeds, int B, int32_t* flips,
 //                        (ops/augment.py:item_codes, chain_args)
 //   enh   [B, 8] float32 the enhance rows as drawn
 //   sh1, sh2 [B, S] int32  geometry.shear_params' vectors from its
-//                        per-item factors a and b (geometry.shear_factors):
-//                        rint(a * iy), iy = k - (S - 1) / 2, in float32,
+//                        per-item factors a = tan(phi / 2) and b = -sin(phi)
+//                        (geometry.shear_factors; b comes as sin(phi) and
+//                        is negated here, exactly): rint(a * iy),
+//                        iy = k - (S - 1) / 2, in float32,
 //                        rounded half to even as torch.round rounds,
 //                        converted as Tensor.to(torch.int32) converts, then
 //                        clipped to +-lim1 and +-lim2 (geometry.shift_limits)
@@ -240,7 +272,8 @@ void ipp_chain_flip_draws(const uint64_t* seeds, int B, int32_t* flips,
 // IEEE float32 work, so the rows equal the torch glue's bit for bit.
 void ipp_chain_pack(int B, int S, const int32_t* y0, const int32_t* x0,
                     const int32_t* flips, const float* prm,
-                    const int32_t* quad, const float* a, const float* b,
+                    const int32_t* quad, const float* a,
+                    const float* sin_phi,
                     const int32_t* d4, int lim1, int lim2, int32_t* items,
                     float* enh, int32_t* sh1, int32_t* sh2) {
   for (int i = 0; i < B; ++i) {
@@ -255,7 +288,7 @@ void ipp_chain_pack(int B, int S, const int32_t* y0, const int32_t* x0,
   for (int i = 0; i < B; ++i) {
     const int64_t at = static_cast<int64_t>(i) * S;
     shift_row(a[i], c, S, lim1, sh1 + at);
-    shift_row(b[i], c, S, lim2, sh2 + at);
+    shift_row(-sin_phi[i], c, S, lim2, sh2 + at);
   }
 }
 

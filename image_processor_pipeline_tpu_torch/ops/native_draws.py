@@ -3,8 +3,11 @@
 ``_flip_and_params`` for a whole batch in one native call each, bit for
 bit the draws of ``random.py`` (and so of ``jax.random``), which stays
 their numpy twin and the chains' path where this library is unavailable;
-and ``chain_pack``, which writes a 'cuda_full' call's item rows, enhance
-rows and shift vectors into one buffer for one copy to the card.
+``shear_factors``, ``geometry.shear_factors`` of the drawn angles, its
+exact arithmetic in one native pass (``chain_angles``) and only ``tan``
+and ``sin`` left to torch; and ``chain_pack``, which writes a
+'cuda_full' call's item rows, enhance rows and shift vectors into one
+buffer for one copy to the card.
 
 The library is built at first use with ``g++`` straight from the source
 into ``_build/libipp_draws.so`` by utils/native_build.py (an flock, a temp
@@ -65,16 +68,17 @@ def build_error() -> Optional[str]:
 
 
 def _bind_symbols(lib) -> None:
-    """Declare argtypes/restypes for the three exports.  Raises
+    """Declare argtypes/restypes for the four exports.  Raises
     AttributeError when the loaded library lacks one."""
     c_int, p = ctypes.c_int, ctypes.c_void_p
     lib.ipp_chain_crop_draws.argtypes = [p, p, c_int, c_int, c_int, c_int,
                                          p, p, p]
     lib.ipp_chain_flip_draws.argtypes = [p, c_int, p, p]
+    lib.ipp_chain_angles.argtypes = [c_int] + [p] * 4
     lib.ipp_chain_pack.argtypes = [c_int, c_int] + [p] * 8 + [c_int] * 2 \
         + [p] * 4
     for fn in (lib.ipp_chain_crop_draws, lib.ipp_chain_flip_draws,
-               lib.ipp_chain_pack):
+               lib.ipp_chain_angles, lib.ipp_chain_pack):
         fn.restype = None
 
 
@@ -123,6 +127,35 @@ def flip_draws(seeds: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return flips, prm
 
 
+def chain_angles(angles: np.ndarray
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(quad [B] int32, phi / 2 [B] float32, phi [B] float32) of the drawn
+    angles [B] in degrees (a contiguous float32 numpy array, as
+    ``crop_draws`` gives them; any other form raises ValueError): the
+    quarter turn and remainder of ``geometry.shear_factors``, from one
+    native pass of its float32 and integer operations, bit for bit for
+    finite angles.  The library must be available."""
+    if not (isinstance(angles, np.ndarray) and angles.dtype == np.float32
+            and angles.ndim == 1 and angles.flags.c_contiguous):
+        raise ValueError("chain_angles needs the angles as a contiguous "
+                         "float32 [B] numpy array")
+    B = len(angles)
+    quad = torch.empty(B, dtype=torch.int32)
+    half_phi, phi = torch.empty(B), torch.empty(B)
+    _load().ipp_chain_angles(B, angles.ctypes.data, quad.data_ptr(),
+                             half_phi.data_ptr(), phi.data_ptr())
+    return quad, half_phi, phi
+
+
+def shear_factors(angles: np.ndarray
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(quad, a = tan(phi / 2), s = sin(phi)) [B] of ``chain_angles``:
+    ``geometry.shear_factors``' quad and a, and the negation of its b,
+    with ``tan`` and ``sin`` torch's, in place on the [B] host tensors."""
+    quad, a, s = chain_angles(angles)
+    return quad, a.tan_(), s.sin_()
+
+
 #: each section of ``chain_pack``'s buffer starts at a multiple of this
 ALIGN = 256
 
@@ -164,14 +197,15 @@ def section(buf: torch.Tensor, layout: PackLayout, name: str):
 
 
 def chain_pack(out: torch.Tensor, layout: PackLayout, y0, x0, flips, prm,
-               quad, a, b, d4, lim1: int, lim2: int) -> None:
+               quad, a, s, d4, lim1: int, lim2: int) -> None:
     """Write a 'cuda_full' call's rows into the uint8 host buffer ``out``
     (``layout.nbytes`` bytes or more) at ``layout``'s offsets: the item
     rows of y0, x0 [B] int32, the D4 code ``d4`` [16] gives quarter turn
     ``quad`` and user flip ``flips`` [B] int32, and 0; the enhance rows
     ``prm`` [B, 8] float32; and ``geometry.shear_params``' sh1, sh2 [B, S]
-    from ``geometry.shear_factors``' quad, a, b [B] (CPU tensors), clipped
-    to ``lim1`` and ``lim2`` (``geometry.shift_limits``).  The rows are
+    from ``shear_factors``' quad, a and s = sin(phi) [B] (CPU tensors; the
+    pack negates s into ``geometry.shear_factors``' b), clipped to
+    ``lim1`` and ``lim2`` (``geometry.shift_limits``).  The rows are
     taken as they are, contiguous numpy arrays of these dtypes (the
     draws'), ``d4`` int32 [16]: any other form raises ValueError.  The
     library must be available."""
@@ -179,7 +213,7 @@ def chain_pack(out: torch.Tensor, layout: PackLayout, y0, x0, flips, prm,
     arrays = ((y0, np.int32, (B,)), (x0, np.int32, (B,)),
               (flips, np.int32, (B,)), (prm, np.float32, (B, 8)),
               (d4, np.int32, (16,)))
-    factors = ((quad, torch.int32), (a, torch.float32), (b, torch.float32))
+    factors = ((quad, torch.int32), (a, torch.float32), (s, torch.float32))
     if not (all(isinstance(v, np.ndarray) and v.dtype == dtype
                 and v.shape == shape and v.flags.c_contiguous
                 for v, dtype, shape in arrays)
@@ -195,6 +229,6 @@ def chain_pack(out: torch.Tensor, layout: PackLayout, y0, x0, flips, prm,
     base = out.data_ptr()
     _load().ipp_chain_pack(
         B, S, y0.ctypes.data, x0.ctypes.data, flips.ctypes.data,
-        prm.ctypes.data, quad.data_ptr(), a.data_ptr(), b.data_ptr(),
+        prm.ctypes.data, quad.data_ptr(), a.data_ptr(), s.data_ptr(),
         d4.ctypes.data, lim1, lim2, base + layout.items, base + layout.enh,
         base + layout.sh1, base + layout.sh2)

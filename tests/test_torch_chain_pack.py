@@ -2,10 +2,12 @@
 native/ipp_draws.cpp:ipp_chain_pack) against the torch glue they replace
 on the card: the item rows ``ops/augment.py:chain_args`` stacks (y0, x0,
 ``item_codes`` of quarter turn and flip, 0), the enhance rows as drawn,
-and ``geometry.shear_params``' sh1 and sh2, bit for bit.  Both sides take
-the per-item factors from the same torch ops (``geometry.shear_factors``),
-so the pack is held to the [B, S] expansion, the item codes and the
-layout.  The launch from the packed rows runs on the card only
+and ``geometry.shear_params``' sh1 and sh2, bit for bit.  The pack takes
+its per-item factors from the native pass (``native_draws.shear_factors``
+over ``ipp_chain_angles``, with torch's ``tan`` and ``sin``), which is
+held here to ``geometry.shear_factors``' intermediates and outputs; the
+pack is held to the [B, S] expansion, the item codes and the layout.  The
+launch from the packed rows runs on the card only
 (tests/test_torch_cuda.py)."""
 
 import numpy as np
@@ -35,13 +37,28 @@ def todays_rows(y0, x0, flips, prm, angles, S):
     return dict(zip(SECTIONS, (items, torch.from_numpy(prm), sh1, sh2)))
 
 
-def packed_rows(y0, x0, flips, prm, angles, S):
-    """The sections of one packed buffer, its padding filled with 0xAB."""
+def factors(angles, native=True):
+    """(quad, tan(phi/2), sin(phi)) of ``angles``: the packed path's
+    native pass, or ``geometry.shear_factors`` with its b negated."""
+    if native:
+        return native_draws.shear_factors(angles)
+    quad, a, b = geometry.shear_factors(torch.from_numpy(angles))
+    return quad, a, -b
+
+
+def packed_buffer(y0, x0, flips, prm, angles, S, native=True):
+    """One packed buffer, its padding filled with 0xAB, and its layout."""
     layout = native_draws.pack_layout(len(y0), S)
     buf = torch.full((layout.nbytes,), 0xAB, dtype=torch.uint8)
-    quad, a, b = geometry.shear_factors(torch.from_numpy(angles))
-    native_draws.chain_pack(buf, layout, y0, x0, flips, prm, quad, a, b,
-                            augment._D4_CODES, *geometry.shift_limits(S))
+    native_draws.chain_pack(buf, layout, y0, x0, flips, prm,
+                            *factors(angles, native), augment._D4_CODES,
+                            *geometry.shift_limits(S))
+    return buf, layout
+
+
+def packed_rows(y0, x0, flips, prm, angles, S):
+    """The sections of one packed buffer."""
+    buf, layout = packed_buffer(y0, x0, flips, prm, angles, S)
     return {name: native_draws.section(buf, layout, name)
             for name in SECTIONS}
 
@@ -140,7 +157,7 @@ def test_the_pack_refuses_what_does_not_fit(fault):
         BIG_SEED + np.arange(B, dtype=np.int64), S)
     layout = native_draws.pack_layout(B, S)
     buf = torch.empty(layout.nbytes, dtype=torch.uint8)
-    quad, a, b = geometry.shear_factors(torch.from_numpy(angles))
+    quad, a, s = factors(angles)
     d4 = augment._D4_CODES
     if fault == "short_buffer":
         buf = buf[:-1]
@@ -151,7 +168,7 @@ def test_the_pack_refuses_what_does_not_fit(fault):
     else:
         d4 = d4[:8]
     with pytest.raises(ValueError):
-        native_draws.chain_pack(buf, layout, y0, x0, flips, prm, quad, a, b,
+        native_draws.chain_pack(buf, layout, y0, x0, flips, prm, quad, a, s,
                                 d4, *geometry.shift_limits(S))
 
 
@@ -180,7 +197,7 @@ def test_factors_past_the_clip_and_nan_expand_as_torch_expands_them(S):
     y0, x0, flips, prm, _ = drawn(BIG_SEED + np.arange(B, dtype=np.int64), S)
     layout = native_draws.pack_layout(B, S)
     buf = torch.empty(layout.nbytes, dtype=torch.uint8)
-    native_draws.chain_pack(buf, layout, y0, x0, flips, prm, quad, a, b,
+    native_draws.chain_pack(buf, layout, y0, x0, flips, prm, quad, a, -b,
                             augment._D4_CODES, *geometry.shift_limits(S))
     iy = torch.arange(S, dtype=torch.float32) - (float(S) - 1.0) / 2.0
     want = geometry._clip_shifts(
@@ -189,3 +206,130 @@ def test_factors_past_the_clip_and_nan_expand_as_torch_expands_them(S):
     assert torch.equal(native_draws.section(buf, layout, "sh1"), want[0])
     assert torch.equal(native_draws.section(buf, layout, "sh2"), want[1])
     assert (want[0].abs() == geometry.shift_limits(S)[0]).any()
+
+
+# -- the native factors (native_draws.chain_angles, shear_factors) -----------
+
+def torch_angles(angles):
+    """``geometry.shear_factors``' quad, phi / 2 and phi, in its torch ops
+    and order."""
+    theta = torch.from_numpy(angles) * geometry._DEG2RAD
+    theta = torch.fmod(theta, geometry._TWO_PI)
+    theta = torch.where(theta < 0, theta + geometry._TWO_PI, theta)
+    quad = torch.remainder(torch.floor(
+        (theta + geometry._PI_4)
+        / torch.full_like(theta, geometry._PI_2)).to(torch.int32), 4)
+    phi = theta - quad.to(torch.float32) * geometry._PI_2
+    return quad, phi / 2, phi
+
+
+def assert_factors_equal(angles):
+    """The native quad, phi / 2 and phi equal the torch intermediates bit
+    for bit, and the factors from them equal ``shear_factors``'."""
+    got = native_draws.chain_angles(angles)
+    want = torch_angles(angles)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    quad, a, b = geometry.shear_factors(torch.from_numpy(angles))
+    assert torch.equal(torch.tan(want[1]), a)
+    assert torch.equal(-torch.sin(want[2]), b)
+    q2, a2, s2 = native_draws.shear_factors(angles)
+    assert torch.equal(q2, quad) and torch.equal(a2, a)
+    assert torch.equal(s2.view(torch.int32), (-b).view(torch.int32))
+
+
+def nudged(values, ulps):
+    """float32 ``values`` moved ``ulps`` float32 steps (signed)."""
+    out = np.asarray(values, np.float32)
+    for _ in range(abs(ulps)):
+        out = np.nextafter(out, np.float32(np.sign(ulps) * np.inf))
+    return out
+
+
+@pytest.mark.parametrize("base", [0, BIG_SEED])
+def test_the_native_factors_over_the_angles_of_2_16_seeds(base):
+    seeds = base + np.arange(1 << 16, dtype=np.int64)
+    boxes = np.asarray([0.5, 0.5, 0.2, 0.2], np.float32)
+    angles = native_draws.crop_draws(seeds, boxes, 640, 640, 512)[2]
+    assert_factors_equal(angles)
+
+
+@pytest.mark.parametrize("ulps", [-4, -3, -2, -1, 0, 1, 2, 3, 4])
+@pytest.mark.parametrize("step", [45.0, 90.0])
+def test_the_native_factors_at_the_octant_and_quarter_turn_edges(step, ulps):
+    """k * 45 and k * 90 degrees, k in [-8, 8], and 1 to 4 float32 ulps
+    either side."""
+    edges = step * np.arange(-8, 9)
+    assert_factors_equal(nudged(edges, ulps))
+
+
+def test_the_native_factors_at_the_draws_ends():
+    """1 degree, the draw's low end, and the angles just under 359, its
+    high end, and just above 1."""
+    angles = np.concatenate([nudged([1.0, 359.0], u) for u in range(-4, 5)])
+    assert_factors_equal(angles)
+
+
+def test_the_native_factors_where_the_quarter_turn_is_an_ulp_from_an_integer():
+    """Angles whose float32 (theta + pi/4) / (pi/2) lies within one ulp of
+    an integer, so that floor decides the quarter turn on the last bit:
+    found among 4,001 float32 neighbours of each octant edge."""
+    edges = np.float32([45.0, 135.0, 225.0, 315.0, -45.0, 405.0])
+    # adjacent bit patterns are adjacent floats of one sign
+    near = (edges.view(np.int32)[:, None]
+            + np.arange(-2000, 2001, dtype=np.int32)).view(np.float32)
+    near = near.ravel()
+    quad, _, _ = torch_angles(near)
+    theta = torch.fmod(torch.from_numpy(near) * geometry._DEG2RAD,
+                       geometry._TWO_PI)
+    theta = torch.where(theta < 0, theta + geometry._TWO_PI, theta)
+    ratio = ((theta + geometry._PI_4)
+             / torch.full_like(theta, geometry._PI_2)).numpy()
+    gap = np.abs(ratio - np.round(ratio))
+    close = near[gap <= np.spacing(ratio)]
+    assert len(close) >= 24
+    assert_factors_equal(np.ascontiguousarray(close))
+
+
+def test_non_finite_angles_give_nan_factors_and_the_torch_rows():
+    """NaN and infinite angles: NaN phi on both sides (the payloads may
+    differ), and the same packed buffer."""
+    angles = np.float32([np.nan, np.inf, -np.inf, 1e30, -1e30, 7.0])
+    got = native_draws.chain_angles(angles)
+    want = torch_angles(angles)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g[~g.isnan()], w[~w.isnan()])
+    B = len(angles)
+    y0, x0, flips, prm, _ = drawn(BIG_SEED + np.arange(B, dtype=np.int64), 97)
+    native, _ = packed_buffer(y0, x0, flips, prm, angles, 97)
+    torch_side, _ = packed_buffer(y0, x0, flips, prm, angles, 97,
+                                  native=False)
+    assert torch.equal(native, torch_side)
+
+
+@pytest.mark.parametrize("S", [512, 97, 64])
+@pytest.mark.parametrize("B", [1, 5, 16, 17, 256])
+def test_the_native_factors_pack_the_buffer_of_the_torch_factors(B, S):
+    """The whole buffer, padding included, from the native factors equals
+    the one from ``geometry.shear_factors``."""
+    args = drawn(BIG_SEED + 13 * B + np.arange(B, dtype=np.int64), S)
+    native, _ = packed_buffer(*args, S)
+    torch_side, _ = packed_buffer(*args, S, native=False)
+    assert torch.equal(native, torch_side)
+
+
+@pytest.mark.parametrize("fault", ["float64", "two_dims", "strided",
+                                   "tensor"])
+def test_the_native_factors_refuse_what_does_not_fit(fault):
+    angles = np.linspace(1.0, 359.0, 8, dtype=np.float32)
+    bad = {"float64": lambda: angles.astype(np.float64),
+           "two_dims": lambda: angles.reshape(2, 4),
+           "strided": lambda: np.repeat(angles, 2)[::2],
+           "tensor": lambda: torch.from_numpy(angles)}[fault]()
+    with pytest.raises(ValueError):
+        native_draws.chain_angles(bad)
+    with pytest.raises(ValueError):
+        native_draws.shear_factors(bad)

@@ -169,10 +169,31 @@ def test_the_packed_path_gives_the_bytes_of_todays_glue(cuda_device,
     with profiling.recording():
         got = chains.augment_chain(images, xywhn, seeds)
     assert recorder.counters["chain.packed"] == 1
+    assert recorder.counters["chain.factors_native"] == 1
     assert recorder.counters["chain.h2d_copies"] == 1
     assert kernels.launch_counts["augment_full"] == 1
     want = todays_glue(images, xywhn, seeds)
     torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [97, 512])
+@pytest.mark.parametrize("B", [5, 15, 17])
+def test_the_packed_path_equals_the_plain_twin_on_card(cuda_device, recorder,
+                                                       B, S):
+    """'cuda_full' (native factors, one pack, K1) against 'full_reference'
+    (shear_params' torch factors, the kernel's plain twin) on 640 px
+    canvases, byte for byte, at batches off the kernel's cluster and
+    vector widths and at an odd crop."""
+    images, xywhn, seeds = packed_inputs(B, cuda_device, seed=100 + B + S)
+    with profiling.recording():
+        got = chains.augment_chain(images, xywhn, seeds, crop=S)
+    assert recorder.counters["chain.factors_native"] == 1
+    want = chains.augment_chain(images, xywhn, seeds, crop=S,
+                                rotation="full_reference")
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, S, 4)
     assert torch.equal(got, want)
 
 
@@ -207,6 +228,7 @@ def test_other_modes_take_todays_glue(cuda_device, recorder):
         got = chains.augment_chain(images, xywhn, seeds,
                                    rotation="cuda_shear")
     assert "chain.packed" not in recorder.counters
+    assert "chain.factors_native" not in recorder.counters
     assert recorder.counters["chain.h2d_copies"] == 7
     torch.cuda.synchronize()
     assert torch.equal(got, want)
